@@ -1,0 +1,187 @@
+"""Regularization auto-search: a batched log-grid screen and a bounded
+1-D refinement (counterpart of ``gp_bayesopinf_tpu/bayes/regsearch.py``,
+kernel objective for autonomous "cAH" ROMs).
+
+For each candidate lambda on a log grid, draw ``ndraws`` posterior
+operator samples and integrate each over both the prediction and the
+estimation time domains. A candidate is rejected (objective MAXOPTVAL)
+if any draw is unstable or the posterior is not SPD; otherwise it scores
+the relative error of the draw mean against the GP state estimates. A
+grid best at an endpoint widens the bounds; the bounded scalar
+minimization between the best's neighbours then refines it on one
+frozen set of draws, falling back to the grid best if it fails.
+
+Every candidate's integrations go through ``ops.ensemble_screen``: the
+Hopper kernel for CUDA tensors, the plain PyTorch version for CPU
+tensors. The generic per-trajectory objective, cAHBN ROMs and the
+device-mesh grid wait for later slices.
+"""
+
+import logging
+from typing import NamedTuple, Optional
+
+import numpy as np
+import scipy.optimize
+import torch
+
+from ..ops.ensemble_screen import quadratic_ensemble_screen
+from ..solve.lstsq import WeightedLSTSQ
+
+MAXOPTVAL = 1e12  # objective ceiling of a rejected candidate
+DEFAULT_GRID_PDE = np.logspace(-16, 4, 81)
+CHUNK = 16  # candidates per screen call; the refine pads to the same width
+
+
+class RegSearchResult(NamedTuple):
+    regularizer: float  # chosen lambda
+    grid_best: float  # best grid point
+    grid_errors: np.ndarray  # (G,) objective per grid candidate
+    refined: bool  # True if the 1-D refinement succeeded
+
+
+def _kernel_objective(
+    lstsq: WeightedLSTSQ, rom, initial_conditions, t_pred, t_est,
+    snapshots_est, ndraws: int,
+):
+    """Batched objective: (lams (C,), xi (C, ndraws, r, d)) -> (C,) float64
+    objective values on the host."""
+    L = snapshots_est.shape[0]
+    r = rom.state_dimension
+    shifts = torch.mean(snapshots_est, dim=2)  # (L, r)
+    limits = 5.0 * torch.amax(torch.abs(snapshots_est - shifts[:, :, None]), dim=2)
+    norms = torch.sqrt(torch.sum(snapshots_est**2, dim=(1, 2))).to(torch.float32)
+
+    def objective(lams: torch.Tensor, xi: torch.Tensor) -> np.ndarray:
+        C = lams.shape[0]
+        stable = lstsq.posterior_spd(lams)  # (C,)
+        ohats = lstsq.sample(lams, xi=xi).reshape(C * ndraws, r, -1)
+        err = torch.zeros(C, dtype=torch.float32, device=lams.device)
+        for ell in range(L):
+            common = (ohats, initial_conditions[ell])
+            st_p, _ = quadratic_ensemble_screen(
+                *common, t_pred, shifts[ell], limits[ell],
+                nd=ndraws, substeps=rom.substeps, track_error=False,
+            )
+            st_e, err_sq = quadratic_ensemble_screen(
+                *common, t_est, shifts[ell], limits[ell], snapshots_est[ell],
+                nd=ndraws, substeps=rom.substeps,
+            )
+            stable = stable & torch.all((st_p & st_e).reshape(C, ndraws), dim=1)
+            err = err + torch.sqrt(err_sq) / norms[ell]
+        err = err / L
+        ok = stable & torch.isfinite(err)
+        return torch.where(ok, err.to(torch.float64), MAXOPTVAL).cpu().numpy()
+
+    return objective
+
+
+def auto_regularize(
+    lstsq: WeightedLSTSQ,
+    rom,
+    initial_conditions: torch.Tensor,
+    t_pred: torch.Tensor,
+    t_est: torch.Tensor,
+    snapshots_est: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    grid: Optional[np.ndarray] = None,
+    ndraws: int = 20,
+    verbose: bool = True,
+    xi_grid: Optional[torch.Tensor] = None,
+    xi_refine: Optional[torch.Tensor] = None,
+) -> RegSearchResult:
+    """Select the regularization hyperparameter lambda.
+
+    Parameters
+    ----------
+    lstsq : the weighted regression's factorization.
+    rom : an autonomous "cAH" ``GalerkinROM`` (its ``substeps`` set the
+        screen's RK4 step).
+    initial_conditions : (L, r) or (r,) initial states, one per trajectory.
+    t_pred, t_est : prediction and estimation time grids.
+    snapshots_est : (L, r, m') or (r, m') GP state estimates.
+    generator : stream for the posterior draws of the screen.
+    grid : candidate lambdas (default ``DEFAULT_GRID_PDE``).
+    ndraws : posterior draws per candidate (at most 32).
+    xi_grid, xi_refine : optional standard normals replacing the draws
+        from ``generator``: (G, ndraws, r, d) for the grid, each
+        candidate its own, and (ndraws, r, d) for the refinement, one set
+        frozen for all its evaluations. The parity tests replay the JAX
+        package's random numbers through them.
+    """
+    if rom.structure != "cAH":
+        raise ValueError(
+            f"the screen needs an autonomous 'cAH' ROM, got '{rom.structure}'"
+        )
+    grid = DEFAULT_GRID_PDE if grid is None else np.sort(np.atleast_1d(grid))
+    initial_conditions = torch.atleast_2d(initial_conditions)
+    if snapshots_est.ndim == 2:
+        snapshots_est = snapshots_est[None]
+    dev, dtype = lstsq.S.device, lstsq.S.dtype
+    shape = (ndraws, lstsq.num_problems, lstsq.num_unknowns)
+    objective = _kernel_objective(
+        lstsq, rom, initial_conditions, t_pred, t_est, snapshots_est, ndraws
+    )
+
+    G = len(grid)
+    if G == 1:
+        best_reg = float(grid[0])
+        grid_errors = np.array([np.nan])
+        bounds = [best_reg / 10.0, best_reg * 10.0]
+    else:
+        if xi_grid is None:
+            xi_grid = torch.randn(
+                (G,) + shape, generator=generator, dtype=dtype, device=dev
+            )
+        grid_t = torch.as_tensor(grid, dtype=dtype, device=dev)
+        width = min(CHUNK, G)
+        parts = []
+        for s in range(0, G, width):
+            idx = torch.as_tensor(np.arange(s, s + width) % G, device=dev)  # wrap pad
+            parts.append(objective(grid_t[idx], xi_grid[idx])[: min(width, G - s)])
+        grid_errors = np.concatenate(parts)
+        if verbose:
+            for lam, e in zip(grid, grid_errors):
+                tag = "UNSTABLE" if e >= MAXOPTVAL else f"{e:.2%} error"
+                print(f"reg {lam:.4e}: {tag}")
+        if np.all(grid_errors >= MAXOPTVAL):
+            raise ValueError("grid search failed: every candidate unstable")
+        ibest = int(np.argmin(grid_errors))
+        best_reg = float(grid[ibest])
+        if ibest == 0:
+            print("WARNING: extend regularizer_grid to the left!")
+            bounds = [best_reg / 100.0, float(grid[1])]
+        elif ibest == G - 1:
+            print("WARNING: extend regularizer_grid to the right!")
+            bounds = [float(grid[-2]), best_reg * 100.0]
+        else:
+            bounds = [float(grid[ibest - 1]), float(grid[ibest + 1])]
+        logging.info(f"Best regularization via gridsearch: {best_reg:.4e}")
+        if verbose:
+            print(f"Best regularization via gridsearch: {best_reg:.4e}")
+
+    # Bounded refinement in log10 lambda on ONE frozen set of draws: the
+    # bracketing needs a deterministic objective. Each evaluation pads the
+    # candidate to the grid's chunk width, so the screen keeps one shape.
+    if xi_refine is None:
+        xi_refine = torch.randn(shape, generator=generator, dtype=dtype, device=dev)
+    width = min(CHUNK, max(G, 1))
+    xi_single = xi_refine.expand((width,) + shape)
+
+    def host_objective(logreg):
+        lams = torch.full((width,), 10.0**logreg, dtype=dtype, device=dev)
+        return float(objective(lams, xi_single)[0])
+
+    opt = scipy.optimize.minimize_scalar(
+        host_objective, method="bounded", bounds=np.log10(bounds)
+    )
+    if opt.success and opt.fun < MAXOPTVAL:
+        chosen, refined = float(10.0**opt.x), True
+        logging.info(f"Best regularization via optimization: {chosen:.4e}")
+        if verbose:
+            print(f"Best regularization via optimization: {chosen:.4e}")
+    else:
+        chosen, refined = best_reg, False
+        logging.info("Regularization optimization failed; using grid best")
+        if verbose:
+            print("Optimization failed, falling back on gridsearch")
+    return RegSearchResult(chosen, best_reg, grid_errors, refined)

@@ -1,0 +1,209 @@
+"""RK4 ensemble screen of quadratic "cAH" ROM posterior draws
+(counterpart of ``gp_bayesopinf_tpu/ops/ensemble_pallas.py``,
+``quadratic_ensemble_screen`` and its XLA twin).
+
+The regularization search integrates G candidates x nd posterior draws
+of a quadratic ROM over two time grids and needs only decision
+quantities from them:
+
+* per-draw stability flags (finite and inside the 5x-amplitude envelope
+  at every output time, t0 included);
+* per-candidate squared error of the nd-draw mean trajectory against the
+  GP state estimates, summed over all output times, t0 included.
+
+Two implementations with one contract, both float32 (the screening
+contract; posteriors and final ensembles stay float64):
+
+* ``quadratic_ensemble_screen_cuda``: the hand-written Hopper kernel
+  ``csrc/quadratic_screen.cu`` (see its header for the design);
+* ``quadratic_ensemble_screen_torch``: the plain PyTorch version, a
+  batched (N, r) RK4 with a feature concat and an einsum.
+
+``quadratic_ensemble_screen`` dispatches on the tensors' device: CPU
+tensors take the plain version, CUDA tensors the kernel, which raises on
+any failure. Nothing falls back from one to the other.
+"""
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from .quadratic import ckron_indices
+
+DIVERGE_CAP = 1e6  # must dominate any stability envelope
+MAX_DRAWS_PER_CANDIDATE = 32  # one warp per candidate, one lane per draw
+
+#: Kernel launches made by ``quadratic_ensemble_screen_cuda`` in this
+#: process. Callers may reset it to 0 to count the launches of one run.
+launches = 0
+
+
+def _plain(Ohat, q0, t_eval, shift, limits, snapshots, nd, substeps, track_error):
+    """The plain screen; returns (stable (N,), err_sq (G,), maxdev (N, r))."""
+    f32 = torch.float32
+    N, r, d = Ohat.shape
+    G = N // nd
+    O = Ohat.to(f32)
+    q = q0.to(f32).expand(N, r)
+    shift = shift.to(f32)
+    limits = limits.to(f32)
+    do_err = track_error and snapshots is not None
+    snaps = snapshots.to(f32) if do_err else None
+    rows, cols = (torch.as_tensor(i, device=O.device) for i in ckron_indices(r))
+    ones = torch.ones((N, 1), dtype=f32, device=O.device)
+
+    def rhs(q):
+        feats = torch.cat([ones, q, q[:, rows] * q[:, cols]], dim=1)
+        return torch.einsum("nrd,nd->nr", O, feats)
+
+    def clip(x):
+        return torch.clamp(x, -DIVERGE_CAP, DIVERGE_CAP)  # keeps NaN
+
+    def err_term(i, q):
+        mean = torch.mean(q.reshape(G, nd, r), dim=1)  # (G, r)
+        diff = mean - snaps[:, i][None, :]
+        return torch.sum(diff * diff, dim=1)
+
+    err = err_term(0, q) if do_err else torch.zeros(G, dtype=f32, device=O.device)
+    maxdev = torch.abs(q - shift)
+    t = t_eval.to(f32)
+    # Step sizes in float32, as the kernel computes them; each is exact as
+    # a Python float, and 0.5 h and h / 6 round as they do in float32.
+    hs = ((t[1:] - t[:-1]) / substeps).tolist()
+    for i, h in enumerate(hs, start=1):
+        for _ in range(substeps):
+            k1 = rhs(q)
+            k2 = rhs(clip(q + 0.5 * h * k1))
+            k3 = rhs(clip(q + 0.5 * h * k2))
+            k4 = rhs(clip(q + h * k3))
+            q = clip(q + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4))
+        maxdev = torch.maximum(maxdev, torch.abs(q - shift))  # keeps NaN
+        if do_err:
+            err = err + err_term(i, q)
+    stable = torch.all((maxdev <= limits) & torch.isfinite(maxdev), dim=1)
+    return stable, err, maxdev
+
+
+def quadratic_ensemble_screen_torch(
+    Ohat, q0, t_eval, shift, limits, snapshots=None, nd: int = 20,
+    substeps: int = 4, track_error: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch screen; same arguments and results as
+    ``quadratic_ensemble_screen``."""
+    stable, err, _ = _plain(
+        Ohat, q0, t_eval, shift, limits, snapshots, nd, substeps, track_error
+    )
+    return stable, err
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    from .build import load_library
+
+    lib = load_library("quadratic_screen")
+    fn = lib.gpboi_quadratic_screen
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def quadratic_ensemble_screen_cuda(
+    Ohat, q0, t_eval, shift, limits, snapshots=None, nd: int = 20,
+    substeps: int = 4, track_error: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Hopper kernel; same arguments and results as
+    ``quadratic_ensemble_screen``, but every tensor must be a contiguous
+    float32 tensor on one CUDA device. Raises on anything the kernel does
+    not take and on a failed launch."""
+    global launches
+    dev = Ohat.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA screen needs CUDA tensors, got {dev}")
+    if Ohat.ndim != 3:
+        raise ValueError(f"Ohat must be (N, r, d), got {tuple(Ohat.shape)}")
+    N, r, d = Ohat.shape
+    k = t_eval.shape[0]
+    if d != 1 + r + r * (r + 1) // 2:
+        raise ValueError(f"Ohat has d={d} columns; a 'cAH' ROM with r={r} has "
+                         f"{1 + r + r * (r + 1) // 2}")
+    if not 1 <= nd <= MAX_DRAWS_PER_CANDIDATE or N % nd:
+        raise ValueError(f"need 1 <= nd <= {MAX_DRAWS_PER_CANDIDATE} and "
+                         f"N % nd == 0, got N={N}, nd={nd}")
+    if substeps < 1 or k < 1:
+        raise ValueError(f"need substeps >= 1 and k >= 1, got {substeps}, {k}")
+    track = track_error and snapshots is not None
+    tensors = {
+        "Ohat": (Ohat, (N, r, d)), "q0": (q0, (r,)), "t_eval": (t_eval, (k,)),
+        "shift": (shift, (r,)), "limits": (limits, (r,)),
+    }
+    if track:
+        tensors["snapshots"] = (snapshots, (r, k))
+    for name, (x, shape) in tensors.items():
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, Ohat on {dev}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32, got {x.dtype}")
+
+    # Draw-minor (r, d, N) layout: the lanes of a warp read consecutive
+    # addresses.
+    OT = Ohat.permute(1, 2, 0).contiguous()
+    stable = torch.empty(N, dtype=torch.bool, device=dev)
+    err_sq = torch.zeros(N // nd, dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gpboi_quadratic_screen(
+            OT.data_ptr(), q0.data_ptr(), t_eval.data_ptr(), shift.data_ptr(),
+            limits.data_ptr(), snapshots.data_ptr() if track else None,
+            N, r, nd, k, substeps, stable.data_ptr(), err_sq.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc == -1:
+        raise ValueError(f"the CUDA screen has no instance for r={r} (1..12)")
+    if rc != 0:
+        raise RuntimeError(f"quadratic_screen launch failed: CUDA error {rc}")
+    launches += 1
+    return stable, err_sq
+
+
+def quadratic_ensemble_screen(
+    Ohat: torch.Tensor,
+    q0: torch.Tensor,
+    t_eval: torch.Tensor,
+    shift: torch.Tensor,
+    limits: torch.Tensor,
+    snapshots: Optional[torch.Tensor] = None,
+    nd: int = 20,
+    substeps: int = 4,
+    track_error: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Screen all candidate/draw ROM integrations.
+
+    Parameters
+    ----------
+    Ohat : (N, r, d) operators, N = G * nd, each candidate's draws
+        contiguous; cast to float32.
+    q0, shift, limits : (r,) initial state and stability envelope.
+    t_eval : (k,) output times.
+    snapshots : (r, k) error target, or None.
+    nd : draws per candidate. substeps : RK4 steps per output interval.
+
+    Returns
+    -------
+    stable : (N,) bool. err_sq : (G,) float32, zeros when
+    ``track_error`` is False or ``snapshots`` is None.
+    """
+    if Ohat.device.type == "cuda":
+        f32 = [
+            None if x is None else x.to(torch.float32).contiguous()
+            for x in (Ohat, q0, t_eval, shift, limits, snapshots)
+        ]
+        return quadratic_ensemble_screen_cuda(*f32, nd, substeps, track_error)
+    if Ohat.device.type == "cpu":
+        return quadratic_ensemble_screen_torch(
+            Ohat, q0, t_eval, shift, limits, snapshots, nd, substeps, track_error
+        )
+    raise ValueError(f"no screen for device {Ohat.device}")
