@@ -9,7 +9,7 @@ float64 and masks draws that leave the 5x-amplitude envelope or diverge.
 """
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,15 +46,17 @@ class OperatorPosterior(NamedTuple):
         ndraws: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
         xi: Optional[torch.Tensor] = None,
+        batch_shape: Tuple[int, ...] = (),
     ) -> torch.Tensor:
-        """(ndraws, r, d) operator draws; the standard normals ``xi`` come
-        from ``generator`` unless given."""
+        """(*batch_shape, ndraws, r, d) operator draws; the standard normals
+        ``xi`` come from ``generator`` unless given (then their shape sets
+        the result's)."""
         if xi is None:
             xi = torch.randn(
-                (ndraws, self.nrows, self.ncols), generator=generator,
-                dtype=self.means.dtype, device=self.means.device,
+                tuple(batch_shape) + (ndraws, self.nrows, self.ncols),
+                generator=generator, dtype=self.means.dtype, device=self.means.device,
             )
-        return self.means[None] + torch.einsum("rij,nrj->nri", self.cov_factors, xi)
+        return self.means + torch.einsum("rij,...nrj->...nri", self.cov_factors, xi)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,24 +75,32 @@ class BayesianROM:
         generator: Optional[torch.Generator] = None,
         xi: Optional[torch.Tensor] = None,
         stability_envelope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        input_func: Optional[Callable] = None,
     ):
         """Posterior ensemble of ROM solutions.
 
         Parameters
         ----------
-        initial_conditions : (r,) initial state.
+        initial_conditions : (r,) initial state, or (L, r) for L
+            trajectories integrated as one batch, each with its own draws.
         timepoints : (k,) output times.
-        ndraws, generator, xi : the draws, as in ``OperatorPosterior.sample``.
-        stability_envelope : optional (shift (r,), limits (r,)); draws
-            outside the envelope, or non-finite, are marked invalid.
+        ndraws, generator, xi : the draws, as in ``OperatorPosterior.sample``
+            (``xi`` is (ndraws, r, d), or (L, ndraws, r, d)).
+        stability_envelope : optional (shift, limits), each (r,) or (L, r);
+            draws outside the envelope, or non-finite, are marked invalid.
+        input_func : the ROM's inputs, as in ``GalerkinROM.predict``; for
+            L trajectories it returns (L, 1, m, n).
 
         Returns
         -------
-        draws : (ndraws, r, k). valid : (ndraws,) bool.
+        draws : ([L,] ndraws, r, k). valid : ([L,] ndraws) bool.
         """
-        ohats = self.posterior.sample(ndraws, generator, xi)
-        draws = self.model.predict(ohats, initial_conditions, timepoints)
+        batch = initial_conditions.shape[:-1]
+        ohats = self.posterior.sample(ndraws, generator, xi, batch_shape=batch)
+        draws = self.model.predict(
+            ohats, initial_conditions[..., None, :], timepoints, input_func
+        )
         if stability_envelope is None:
             return draws, finite_mask(draws)
-        shift, limits = stability_envelope
+        shift, limits = (x[..., None, :] for x in stability_envelope)
         return draws, stability_mask(draws, shift, limits)

@@ -1,6 +1,6 @@
 """Regularization auto-search: a batched log-grid screen and a bounded
 1-D refinement (counterpart of ``gp_bayesopinf_tpu/bayes/regsearch.py``,
-kernel objective for autonomous "cAH" ROMs).
+the kernel objective).
 
 For each candidate lambda on a log grid, draw ``ndraws`` posterior
 operator samples and integrate each over both the prediction and the
@@ -9,21 +9,25 @@ if any draw is unstable or the posterior is not SPD; otherwise it scores
 the relative error of the draw mean against the GP state estimates. A
 grid best at an endpoint widens the bounds; the bounded scalar
 minimization between the best's neighbours then refines it on one
-frozen set of draws, falling back to the grid best if it fails.
+frozen set of draws; if it fails, the search falls back to the grid
+best or raises, as the caller chooses.
 
-Every candidate's integrations go through ``ops.ensemble_screen``: the
-Hopper kernel for CUDA tensors, the plain PyTorch version for CPU
-tensors. The generic per-trajectory objective, cAHBN ROMs and the
-device-mesh grid wait for later slices.
+Every candidate's integrations go through an ensemble-screen kernel: the
+RK4 screen (``ops.ensemble_screen``) for an autonomous "cAH" ROM, the
+implicit SDIRK2 screen (``ops.cahbn_screen``) for a "cAHBN" dirk2 ROM
+with per-trajectory inputs. Each takes its Hopper kernel for CUDA tensors
+and its plain PyTorch version for CPU tensors. The generic
+per-trajectory objective and the device-mesh grid wait for later slices.
 """
 
 import logging
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import scipy.optimize
 import torch
 
+from ..ops.cahbn_screen import cahbn_ensemble_screen, input_stage_times
 from ..ops.ensemble_screen import quadratic_ensemble_screen
 from ..solve.lstsq import WeightedLSTSQ
 
@@ -41,7 +45,7 @@ class RegSearchResult(NamedTuple):
 
 def _kernel_objective(
     lstsq: WeightedLSTSQ, rom, initial_conditions, t_pred, t_est,
-    snapshots_est, ndraws: int,
+    snapshots_est, ndraws: int, input_funcs: Optional[Sequence[Callable]],
 ):
     """Batched objective: (lams (C,), xi (C, ndraws, r, d)) -> (C,) float64
     objective values on the host."""
@@ -51,21 +55,34 @@ def _kernel_objective(
     limits = 5.0 * torch.amax(torch.abs(snapshots_est - shifts[:, :, None]), dim=2)
     norms = torch.sqrt(torch.sum(snapshots_est**2, dim=(1, 2))).to(torch.float32)
 
+    grids = {"pred": t_pred, "est": t_est}
+    if rom.structure == "cAH":
+        def screen(ohats, ell, which, snaps=None, **kw):
+            return quadratic_ensemble_screen(
+                ohats, initial_conditions[ell], grids[which], shifts[ell], limits[ell],
+                snaps, nd=ndraws, substeps=rom.substeps, **kw,
+            )
+    else:  # "cAHBN": the implicit screen, inputs tabulated at every stage time
+        # Input functions map (n,) times to (m, n); the screen takes (n, m).
+        u_tables = {
+            which: [f(input_stage_times(t, rom.substeps)).T for f in input_funcs]
+            for which, t in grids.items()
+        }
+
+        def screen(ohats, ell, which, snaps=None, **kw):
+            return cahbn_ensemble_screen(
+                ohats, initial_conditions[ell], grids[which], shifts[ell], limits[ell],
+                u_tables[which][ell], snaps, nd=ndraws, substeps=rom.substeps, **kw,
+            )
+
     def objective(lams: torch.Tensor, xi: torch.Tensor) -> np.ndarray:
         C = lams.shape[0]
         stable = lstsq.posterior_spd(lams)  # (C,)
         ohats = lstsq.sample(lams, xi=xi).reshape(C * ndraws, r, -1)
         err = torch.zeros(C, dtype=torch.float32, device=lams.device)
         for ell in range(L):
-            common = (ohats, initial_conditions[ell])
-            st_p, _ = quadratic_ensemble_screen(
-                *common, t_pred, shifts[ell], limits[ell],
-                nd=ndraws, substeps=rom.substeps, track_error=False,
-            )
-            st_e, err_sq = quadratic_ensemble_screen(
-                *common, t_est, shifts[ell], limits[ell], snapshots_est[ell],
-                nd=ndraws, substeps=rom.substeps,
-            )
+            st_p, _ = screen(ohats, ell, "pred", track_error=False)
+            st_e, err_sq = screen(ohats, ell, "est", snapshots_est[ell])
             stable = stable & torch.all((st_p & st_e).reshape(C, ndraws), dim=1)
             err = err + torch.sqrt(err_sq) / norms[ell]
         err = err / L
@@ -88,14 +105,17 @@ def auto_regularize(
     verbose: bool = True,
     xi_grid: Optional[torch.Tensor] = None,
     xi_refine: Optional[torch.Tensor] = None,
+    input_funcs: Optional[Sequence[Callable]] = None,
+    refine_failure: str = "fallback",
 ) -> RegSearchResult:
     """Select the regularization hyperparameter lambda.
 
     Parameters
     ----------
     lstsq : the weighted regression's factorization.
-    rom : an autonomous "cAH" ``GalerkinROM`` (its ``substeps`` set the
-        screen's RK4 step).
+    rom : an autonomous "cAH" ``GalerkinROM``, or a "cAHBN" one with
+        ``ivp_method="dirk2"`` together with ``input_funcs``; its
+        ``substeps`` set the screen's step.
     initial_conditions : (L, r) or (r,) initial states, one per trajectory.
     t_pred, t_est : prediction and estimation time grids.
     snapshots_est : (L, r, m') or (r, m') GP state estimates.
@@ -107,10 +127,24 @@ def auto_regularize(
         candidate its own, and (ndraws, r, d) for the refinement, one set
         frozen for all its evaluations. The parity tests replay the JAX
         package's random numbers through them.
+    input_funcs : for a "cAHBN" ROM, one input function per trajectory,
+        mapping (n,) times to (m, n) inputs.
+    refine_failure : "fallback" to the grid best when the bounded
+        refinement fails (the PDEs pipeline), or "raise" a RuntimeError
+        (PDEsMulti).
     """
-    if rom.structure != "cAH":
+    if refine_failure not in ("fallback", "raise"):
+        raise ValueError("refine_failure must be 'fallback' or 'raise'")
+    autonomous = rom.structure == "cAH" and rom.input_dimension == 0
+    with_inputs = (
+        rom.structure == "cAHBN" and input_funcs is not None
+        and rom.ivp_method == "dirk2"
+    )
+    if not (autonomous or with_inputs):
         raise ValueError(
-            f"the screen needs an autonomous 'cAH' ROM, got '{rom.structure}'"
+            "the screen needs an autonomous 'cAH' ROM or a 'cAHBN' dirk2 ROM "
+            f"with input_funcs, got '{rom.structure}' ({rom.ivp_method}, "
+            f"input_funcs {'given' if input_funcs is not None else 'None'})"
         )
     grid = DEFAULT_GRID_PDE if grid is None else np.sort(np.atleast_1d(grid))
     initial_conditions = torch.atleast_2d(initial_conditions)
@@ -119,7 +153,8 @@ def auto_regularize(
     dev, dtype = lstsq.S.device, lstsq.S.dtype
     shape = (ndraws, lstsq.num_problems, lstsq.num_unknowns)
     objective = _kernel_objective(
-        lstsq, rom, initial_conditions, t_pred, t_est, snapshots_est, ndraws
+        lstsq, rom, initial_conditions, t_pred, t_est, snapshots_est, ndraws,
+        input_funcs,
     )
 
     G = len(grid)
@@ -180,6 +215,11 @@ def auto_regularize(
         if verbose:
             print(f"Best regularization via optimization: {chosen:.4e}")
     else:
+        if refine_failure == "raise":
+            raise RuntimeError(
+                "regularization refinement failed "
+                f"(success={opt.success}, fun={opt.fun!r})"
+            )
         chosen, refined = best_reg, False
         logging.info("Regularization optimization failed; using grid best")
         if verbose:

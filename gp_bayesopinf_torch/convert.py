@@ -3,8 +3,11 @@ counterpart: this is the bridge the parity tests cross).
 
 Each function reads a ``gp_bayesopinf_tpu`` object field by field as
 numpy arrays (``np.asarray`` works on JAX arrays without importing JAX)
-and builds the port's counterpart on ``device``. The parity tests use
-these to run both packages from the same state.
+and builds the port's counterpart on ``device``, which every function
+requires. The parity tests use these to run both packages from the same
+state; shapes carry over as they are, so the multi-trajectory forms (a
+(r, L, m', m') weight-root stack behind ``weighted_lstsq``) need nothing
+extra.
 """
 
 from typing import List
@@ -16,34 +19,34 @@ from .bayes.posterior import OperatorPosterior
 from .gp.estimates import GPEstimates
 from .gp.fit import FitResult
 from .gp.gp import GaussianProcess
-from .rom.basis import EulerScaledBasis
+from .rom.basis import EulerScaledBasis, QuadraticLiftedBasis
 from .solve.lstsq import WeightedLSTSQ
 from .utils.device import DeviceLike
 
 
-def tensor(x, device: DeviceLike = "cpu") -> torch.Tensor:
+def tensor(x, *, device: DeviceLike) -> torch.Tensor:
     """A JAX or numpy array as a tensor on ``device`` (same dtype)."""
     return torch.as_tensor(np.array(x), device=device)
 
 
 def _fields(obj, names, device):
-    return [tensor(getattr(obj, name), device) for name in names]
+    return [tensor(getattr(obj, name), device=device) for name in names]
 
 
-def fit_result(fit, device: DeviceLike = "cpu") -> FitResult:
+def fit_result(fit, *, device: DeviceLike) -> FitResult:
     return FitResult(*_fields(fit, FitResult._fields, device))
 
 
-def gp_estimates(est, device: DeviceLike = "cpu") -> GPEstimates:
+def gp_estimates(est, *, device: DeviceLike) -> GPEstimates:
     return GPEstimates(*_fields(est, GPEstimates._fields, device))
 
 
-def gaussian_processes(gps, device: DeviceLike = "cpu") -> List[GaussianProcess]:
+def gaussian_processes(gps, *, device: DeviceLike) -> List[GaussianProcess]:
     """JAX ``GaussianProcess`` objects (dense weight root) to the port's."""
     out = []
     for gp in gps:
         arrays = {
-            name: None if getattr(gp, name) is None else tensor(getattr(gp, name), device)
+            name: None if getattr(gp, name) is None else tensor(getattr(gp, name), device=device)
             for name in ("t_training", "y", "t_estimation", "state_estimate",
                          "ddt_estimate", "ddt_covariance", "sqrtW")
         }
@@ -56,7 +59,7 @@ def gaussian_processes(gps, device: DeviceLike = "cpu") -> List[GaussianProcess]
     return out
 
 
-def euler_scaled_basis(basis, device: DeviceLike = "cpu") -> EulerScaledBasis:
+def euler_scaled_basis(basis, *, device: DeviceLike) -> EulerScaledBasis:
     entries, shift_vec, svdvals = _fields(
         basis, ("entries", "shift_vec", "svdvals"), device
     )
@@ -66,9 +69,13 @@ def euler_scaled_basis(basis, device: DeviceLike = "cpu") -> EulerScaledBasis:
     )
 
 
-def weighted_lstsq(fac, device: DeviceLike = "cpu") -> WeightedLSTSQ:
+def quadratic_lifted_basis(basis, *, device: DeviceLike) -> QuadraticLiftedBasis:
+    return QuadraticLiftedBasis(*_fields(basis, ("entries", "shift_vec", "svdvals"), device))
+
+
+def weighted_lstsq(fac, *, device: DeviceLike) -> WeightedLSTSQ:
     return WeightedLSTSQ(*_fields(fac, WeightedLSTSQ._fields, device))
 
 
-def operator_posterior(post, device: DeviceLike = "cpu") -> OperatorPosterior:
+def operator_posterior(post, *, device: DeviceLike) -> OperatorPosterior:
     return OperatorPosterior(*_fields(post, OperatorPosterior._fields, device))

@@ -33,26 +33,9 @@
 // screening contract says; nvcc's multiply-add contraction makes err_sq
 // differ from the CPU in the last bits.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "screen_common.cuh"
 
 namespace {
-
-constexpr float kDivergeCap = 1e6f;  // DIVERGE_CAP of the TPU kernel
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// Clip to +-kDivergeCap that keeps NaN, as jnp.clip does (fminf/fmaxf
-// would return the other operand and turn a NaN draw into a finite one).
-__device__ __forceinline__ float clip_keep_nan(float x) {
-  return x < -kDivergeCap ? -kDivergeCap : (x > kDivergeCap ? kDivergeCap : x);
-}
-
-// Maximum that is NaN when either operand is, as jnp.maximum is.
-__device__ __forceinline__ float max_keep_nan(float a, float b) {
-  if (isnan(a)) return a;
-  if (isnan(b)) return b;
-  return a > b ? a : b;
-}
 
 // dq = Ohat @ [1, q, ckron(q)] for one draw. `op` points at the draw's
 // coefficient (0, 0); coefficient (i, j) lies at op[(i * D + j) * N].
@@ -77,24 +60,6 @@ __device__ __forceinline__ void rom_rhs(const float* __restrict__ op, int N,
     for (int z = 0; z < P; ++z) acc += __ldg(row + static_cast<size_t>(1 + R + z) * N) * quad[z];
     dq[i] = acc;
   }
-}
-
-// Squared error of the candidate's draw mean against snaps[:, s]; the
-// value is complete in lane 0 only. Every lane of the warp must call it.
-template <int R>
-__device__ __forceinline__ float mean_sq_error(const float (&q)[R], bool active, int nd,
-                                               const float* __restrict__ snaps, int k,
-                                               int s) {
-  float e = 0.f;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    float v = active ? q[i] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFullMask, v, off);
-    const float diff = v / static_cast<float>(nd) - __ldg(snaps + static_cast<size_t>(i) * k + s);
-    e += diff * diff;
-  }
-  return e;
 }
 
 template <int R>

@@ -66,7 +66,8 @@ class BoxTransform(NamedTuple):
         constant_bounds,
         length_scale_bounds,
         noise_level_bounds,
-        device="cpu",
+        *,
+        device,
         dtype=torch.float64,
     ) -> "BoxTransform":
         """Build the transform from (lo, hi) hyperparameter bound pairs."""

@@ -4,9 +4,9 @@ JAX package's Pallas kernels are compiled by JAX itself).
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/gp_bayesopinf_torch/`` at the repository root, named by a hash of
-the source and the flags, and loaded with ``ctypes``. Nothing is built
-when the package is imported, and nothing here runs on a machine without
-CUDA unless a CUDA tensor reaches a kernel wrapper.
+the source, the shared headers and the flags, and loaded with ``ctypes``.
+Nothing is built when the package is imported, and nothing here runs on
+a machine without CUDA unless a CUDA tensor reaches a kernel wrapper.
 """
 
 import ctypes
@@ -52,11 +52,14 @@ def _nvcc() -> str:
 
 @functools.cache
 def build(name: str) -> BuildInfo:
-    """Compile ``csrc/<name>.cu`` unless a library for the same source and
-    flags exists. Raises RuntimeError with nvcc's output if it fails."""
+    """Compile ``csrc/<name>.cu`` unless a library for the same source,
+    shared headers (``csrc/*.cuh``) and flags exists. Raises RuntimeError
+    with nvcc's output if it fails. Builds of different names may run in
+    parallel threads."""
     src = CSRC / f"{name}.cu"
+    parts = [src.read_bytes()] + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(parts) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     log, seconds = "", 0.0

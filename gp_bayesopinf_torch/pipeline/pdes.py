@@ -88,7 +88,7 @@ def run_euler(
     times = {}
 
     def stage(name, message):
-        block = TimedBlock(message, device=dev, silent=not verbose)
+        block = TimedBlock(message, device=dev, silent=not verbose, name=name)
         times[name] = block
         return block
 

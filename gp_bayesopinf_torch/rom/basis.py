@@ -4,6 +4,7 @@
 * ``PODBasis``: mean-snapshot shift, then a thin SVD.
 * ``EulerScaledBasis``: nondimensionalizes (v, p, 1/rho) by
   (v_ref, rho_ref v_ref^2, 1/rho_ref) before the POD.
+* ``QuadraticLiftedBasis``: POD of the lifted state (q, q^2).
 
 Singular vectors are defined up to sign, and ``torch.linalg.svd`` may
 choose other signs than JAX's; compare bases up to column sign.
@@ -85,3 +86,15 @@ class EulerScaledBasis(PODBasis):
 
     def _post(self, states: torch.Tensor) -> torch.Tensor:
         return states * self._scale_vec(states.shape[-2], states)[:, None]
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadraticLiftedBasis(PODBasis):
+    """POD over the quadratically lifted state (q, q^2); decompression
+    keeps the q half."""
+
+    def _pre(self, states: torch.Tensor) -> torch.Tensor:
+        return torch.cat([states, states**2], dim=-2)
+
+    def _post(self, states: torch.Tensor) -> torch.Tensor:
+        return states[..., : states.shape[-2] // 2, :]

@@ -2,7 +2,9 @@
 (counterpart of ``gp_bayesopinf_tpu/utils/``)."""
 
 from .device import resolve_device
-from .keys import STAGES, stage_generators
+from .keys import MULTI_STAGES, STAGES, stage_generators
 from .timing import TimedBlock
 
-__all__ = ["resolve_device", "STAGES", "stage_generators", "TimedBlock"]
+__all__ = [
+    "resolve_device", "MULTI_STAGES", "STAGES", "stage_generators", "TimedBlock",
+]

@@ -17,6 +17,11 @@ from .device import DeviceLike
 
 #: The stages of a pipeline run that draw random numbers.
 STAGES = ("sample", "noise", "fit", "search", "draws")
+#: The multi-trajectory pipeline's stages: one more stream, for the
+#: ensemble at the test parameters. ``SeedSequence.spawn`` gives child i
+#: the same state whatever the count, so the first five streams are
+#: ``STAGES``'s.
+MULTI_STAGES = STAGES + ("newparam",)
 
 
 def stage_generators(

@@ -61,11 +61,11 @@ def test_fit_matches_jax_with_injected_starts(data):
         np.asarray(jfit._initial_z(jbox, k, n_restarts))
         for k in jax.random.split(key, r)
     ])
-    tbox = tnlml.BoxTransform.from_bounds(*BOUNDS)
+    tbox = tnlml.BoxTransform.from_bounds(*BOUNDS, device="cpu")
     got = tfit.fit_gp_hyperparameters(
         torch.as_tensor(t), torch.as_tensor(Y), tbox, z0=torch.as_tensor(z0), **kw
     )
-    want = convert.fit_result(want)
+    want = convert.fit_result(want, device="cpu")
     np.testing.assert_allclose(got.nlml.numpy(), want.nlml.numpy(), rtol=1e-6)
     for name in ("sigma2", "ell", "chi"):
         np.testing.assert_allclose(
@@ -76,7 +76,7 @@ def test_fit_matches_jax_with_injected_starts(data):
 
 def test_initial_z_layout(data):
     """Restart 0 is the projected kernel default, as in the JAX package."""
-    tbox = tnlml.BoxTransform.from_bounds(*BOUNDS)
+    tbox = tnlml.BoxTransform.from_bounds(*BOUNDS, device="cpu")
     jbox = jnlml.BoxTransform.from_bounds(*BOUNDS)
     gen = torch.Generator().manual_seed(0)
     z0 = tfit.initial_z(tbox, 3, 5, gen)
@@ -99,7 +99,8 @@ def test_estimates_match_jax_given_hyperparameters(data, hyper):
     t_est = np.linspace(0, 0.06, 60)
     T = np.broadcast_to(t, Y.shape).copy()
     want = convert.gp_estimates(
-        jest.numpy_batched_gp_estimates(T, Y, t_est, s2, ell, chi, 1e-8, method="eigh")
+        jest.numpy_batched_gp_estimates(T, Y, t_est, s2, ell, chi, 1e-8, method="eigh"),
+        device="cpu",
     )
     got = test_.batched_gp_estimates(
         torch.as_tensor(T), torch.as_tensor(Y), torch.as_tensor(t_est),

@@ -1,6 +1,7 @@
 """The PyTorch port imports no JAX: in a fresh interpreter, importing every
 module of ``gp_bayesopinf_torch`` and running a forward call through the
-GP, the regression and the screen leaves ``jax`` out of ``sys.modules``."""
+GP, the regression, both screens and a cAHBN ROM integration with inputs
+leaves ``jax`` out of ``sys.modules``."""
 
 import os
 import subprocess
@@ -36,6 +37,20 @@ fac = weighted_lstsq_fit(rom.data_matrix(st)[None],
 ohats = fac.sample(1e-3, 4, generator=gen).reshape(4, 2, -1)
 stable, err = quadratic_ensemble_screen(ohats, st[:, 0], t_est, st.mean(1),
                                         torch.full((2,), 10.0), st, nd=2)
+assert stable.shape == (4,) and err.shape == (2,)
+
+from gp_bayesopinf_torch.ops import cahbn_ensemble_screen, input_stage_times
+from gp_bayesopinf_torch.pipeline.pdes_multi import input_func_factory
+
+u_of = input_func_factory((1.0, -1.0))
+heat = GalerkinROM("cAHBN", 2, input_dimension=2, ivp_method="dirk2", substeps=2)
+O = 0.1 * torch.randn((4, 2, heat.operator_dimension), generator=gen, dtype=torch.float64)
+O[:, :, 1:3] -= torch.eye(2, dtype=torch.float64)
+sol = heat.predict(O, st[:, 0], t_est, input_func=u_of)
+assert sol.shape == (4, 2, 12) and bool(torch.isfinite(sol).all())
+u_tab = u_of(input_stage_times(t_est, 2)).T
+stable, err = cahbn_ensemble_screen(O, st[:, 0], t_est, st.mean(1), torch.full((2,), 10.0),
+                                    u_tab, st, nd=2, substeps=2)
 assert stable.shape == (4,) and err.shape == (2,)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 print("ok")

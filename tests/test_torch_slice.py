@@ -145,7 +145,7 @@ def test_chained_stages_match_jax(jax_run):
         )
 
     # 4. Regression on JAX's GP products.
-    jgps = convert.gaussian_processes(j["gps"])
+    jgps = convert.gaussian_processes(j["gps"], device="cpu")
     rom = GalerkinROM("cAH", state_dimension=R, substeps=cfg.rom_substeps)
     st = torch.stack([g.state_estimate for g in jgps])
     fac = weighted_lstsq_fit(
@@ -159,7 +159,7 @@ def test_chained_stages_match_jax(jax_run):
                                atol=1e-10 * float(np.max(j["fac"].S)))
 
     # 5. The regularization search on JAX's factorization and draws.
-    jfac = convert.weighted_lstsq(j["fac"])
+    jfac = convert.weighted_lstsq(j["fac"], device="cpu")
     d = jfac.num_unknowns
     xi_grid = np.stack([np.asarray(jax.random.normal(k, (ND, R, d)))
                         for k in jax.random.split(keys["search"], GRID.size)])
@@ -181,7 +181,7 @@ def test_chained_stages_match_jax(jax_run):
     # 6. The ensemble at JAX's lambda, its normals replayed.
     lam = jres.regularizer
     post = OperatorPosterior.from_lstsq(jfac, lam)
-    jpost = convert.operator_posterior(j["post"])
+    jpost = convert.operator_posterior(j["post"], device="cpu")
     np.testing.assert_allclose(post.means.numpy(), jpost.means.numpy(), rtol=1e-10)
     np.testing.assert_allclose(post.cov_factors.numpy(), jpost.cov_factors.numpy(),
                                rtol=1e-10, atol=1e-12 * jpost.cov_factors.abs().max().item())
