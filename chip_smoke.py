@@ -11,19 +11,22 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    the card at the Euler ex1a screen shapes (G = 16 candidates, nd = 20
    draws, r = 6, d = 28, 8 RK4 substeps; k = 401 without the error term,
    k = 400 with it), with a diverging candidate, an envelope-rejected
-   candidate, a NaN draw, and a run with nd = 7; time both with CUDA
-   events;
+   candidate, a NaN draw, a run with nd = 7, and L = 2 problems in one
+   launch with a draw that is NaN in one of them only; time the kernel
+   and the plain version with CUDA events;
 4. the same for kernel B (SDIRK2 "cAHBN" screen) at the heat ex3 screen
    shapes (G = 16, r = 5, nu = 2, d = 33, 4 substeps, 6 Newton steps,
    the ex3 input family): k = 80 with the error term, k = 120 over [0, 2]
-   without it, and nd = 7; the kernel is also timed at the full
-   prediction grid, k = 500;
+   without it, nd = 7, and ex3's L = 5 trajectories in one launch, each
+   with its own q0 and (a, b) inputs; the kernel is also timed at the
+   full prediction grid, k = 500, with L = 1 and L = 5;
 5. run the full ex1a workload through the port's CLI entry
    (``euler 0.06 200 0.03 400 6 --ndraws 600`` on ``cuda``) and check
-   that the grid search went through kernel A and that the posterior
-   ensemble is sound;
+   that the grid search went through kernel A, two launches per objective
+   evaluation, and that the posterior ensemble is sound;
 6. run the full heat ex3 workload (``heat 1.0 20 0.05 80 5 --ndraws
-   600``) and check that its search went through kernel B and that every
+   600``) and check that its search went through kernel B, two launches
+   per objective evaluation for all five trajectories, and that every
    trajectory's ensemble is sound.
 
 The last two lines of standard output are a JSON summary of the kernels
@@ -83,6 +86,65 @@ def screen_case(G, nd, k, t_max, rng, track_error):
     return {n: None if v is None else torch.as_tensor(v, device="cuda") for n, v in args.items()}
 
 
+def batched_case(a, L, rng, per_problem):
+    """L problems from one problem's inputs ``a``: trajectory 0 keeps them,
+    the others get their own q0 and snapshots (and ``per_problem`` supplies
+    any other per-trajectory tensor, as a function of the trajectory). Draw
+    3 becomes a draw that is NaN in trajectory 1 only: its row 1 is a pure
+    decay, so q_1 stays exactly 0 where it starts at 0 (every trajectory
+    but 1), and its row 0 gets +-1e38 on q_1^2 and q_1 q_0, which are 0
+    there and overflow to inf - inf in trajectory 1, where q_1 starts at 2."""
+    Ohat = a["Ohat"].clone()
+    r = Ohat.shape[1]
+    Ohat[3] = Ohat[4]
+    Ohat[3, 1, :] = 0.0
+    Ohat[3, 1, 2] = -20.0
+    Ohat[3, 0, 1 + r + 2] = 1e38  # ckron(q) index 2: q_1 q_1
+    Ohat[3, 0, 1 + r + 1] = -1e38  # ckron(q) index 1: q_1 q_0
+    q0 = torch.stack([a["q0"]] + [torch.as_tensor(0.5 * rng.standard_normal(r), device="cuda")
+                                   for _ in range(L - 1)])
+    q0[:, 1] = 0.0
+    q0[1, 1] = 2.0
+    out = dict(a, Ohat=Ohat, q0=q0, shift=torch.stack([a["shift"]] * L),
+               limits=torch.stack([a["limits"]] * L))
+    if a["snapshots"] is not None:
+        out["snapshots"] = torch.stack([a["snapshots"]] + [
+            torch.as_tensor(0.2 * rng.standard_normal(tuple(a["snapshots"].shape)), device="cuda")
+            for _ in range(L - 1)])
+    for name, make in per_problem.items():
+        out[name] = torch.stack([make(ell) for ell in range(L)])
+    return out
+
+
+def hold(name, s_k, e_k, s_p, e_p, maxdev, limits, G, nd, track, batched):
+    """Kernel against plain on one case: identical flags on every draw, the
+    known outcomes, err_sq within rtol 1e-3 where every draw is stable.
+    Returns the largest |err_sq difference|."""
+    lead = s_p.shape[:-1]
+    # Every draw must sit clear of its limit, so the flags are decided by
+    # construction, not by the last bits.
+    lim = limits[..., None, :]
+    clear = ~torch.isfinite(maxdev) | ((maxdev - lim).abs() > 1e-3 * lim)
+    assert bool(clear.all()), f"{name}: a draw's maxdev lies within 1e-3 of its limit"
+    assert torch.equal(s_k, s_p), f"{name}: flags differ: {torch.nonzero(s_k != s_p).tolist()}"
+    by_cand = s_p.reshape(lead + (G, nd)).all(dim=-1)
+    assert not bool(by_cand[..., -1].any()) and not bool(by_cand[..., -2].any())
+    assert bool(by_cand[..., 1:-2].all()), f"{name}: a sound candidate came out unstable"
+    if batched:  # draw 3 is NaN in trajectory 1 only
+        assert not bool(s_p[1, 3]) and bool(s_p[[0] + list(range(2, lead[0])), 3].all())
+        if track:
+            assert not bool(torch.isfinite(e_p[1, 0])) and not bool(torch.isfinite(e_k[1, 0]))
+    else:  # draw 3 has a NaN operator
+        assert not bool(s_k[3]), f"{name}: the NaN draw came out stable"
+    if not track:
+        assert bool((e_k == 0).all())
+        return 0.0
+    ok = by_cand & torch.isfinite(e_p)
+    assert int(ok.sum()) >= (G - 3) * (lead[0] if batched else 1)
+    torch.testing.assert_close(e_k[ok], e_p[ok], rtol=1e-3, atol=0.0)
+    return float((e_k[ok] - e_p[ok]).abs().max())
+
+
 def cuda_ms(fn, reps):
     fn()  # warm up
     torch.cuda.synchronize()
@@ -138,41 +200,36 @@ def kernel_phase():
     rng = np.random.default_rng(20260817)
     f32 = torch.float32
     max_err, times = 0.0, None
-    cases = [(16, 20, 401, 0.15, False), (16, 20, 400, 0.06, True), (16, 7, 400, 0.06, True)]
-    for G, nd, k, t_max, track in cases:
+    # (G, nd, k, t_max, track_error, L); L = 0 is the single-problem form.
+    cases = [(16, 20, 401, 0.15, False, 0), (16, 20, 400, 0.06, True, 0),
+             (16, 7, 400, 0.06, True, 0), (16, 20, 400, 0.06, True, 2)]
+    for G, nd, k, t_max, track, L in cases:
         a = screen_case(G, nd, k, t_max, rng, track)
+        if L:
+            a = batched_case(a, L, rng, {})
         f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
         kw = dict(nd=nd, substeps=8, track_error=track)
         s_k, e_k = es.quadratic_ensemble_screen(*a.values(), **kw)
         torch.cuda.synchronize()
         s_p, e_p, maxdev = es._plain(*f.values(), nd, 8, track)
-        # Every draw must sit clear of its limit, so the flags are decided
-        # by construction, not by the last bits.
-        lim = f["limits"][None, :]
-        clear = ~torch.isfinite(maxdev) | ((maxdev - lim).abs() > 1e-3 * lim)
-        assert bool(clear.all()), "a draw's maxdev lies within 1e-3 of its limit"
-        assert torch.equal(s_k, s_p), f"flags differ: {torch.nonzero(s_k != s_p).flatten()}"
-        assert not bool(s_k[3]), "the NaN draw came out stable"
-        by_cand = s_p.reshape(G, nd).all(dim=1)
-        assert not bool(by_cand[-1]) and not bool(by_cand[-2]) and bool(by_cand[1:-2].all())
-        if track:
-            ok = by_cand & torch.isfinite(e_p)
-            assert int(ok.sum()) >= G - 3
-            torch.testing.assert_close(e_k[ok], e_p[ok], rtol=1e-3, atol=0.0)
-            max_err = max(max_err, float((e_k[ok] - e_p[ok]).abs().max()))
-        else:
-            assert bool((e_k == 0).all())
-        print(f"[kernel vs plain] G={G} nd={nd} k={k} track_error={track}: "
+        err = hold("A", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd, track, L > 0)
+        max_err = max(max_err, err)
+        print(f"[kernel vs plain] G={G} nd={nd} k={k} track_error={track} L={L or 1}: "
               f"flags identical ({int(s_k.sum())}/{s_k.numel()} stable)", flush=True)
         if (G, nd, k) == (16, 20, 400):
             ms = cuda_ms(lambda: es.quadratic_ensemble_screen_cuda(*f.values(), **kw), 10)
+            flops = quadratic_flops(G * nd, 6, k, 8) * (L or 1)
+            bound, by = bound_ms(flops, screen_bytes(f.values(), (L or 1) * G * nd, (L or 1) * G))
+            if L:
+                print(f"[kernel vs plain] k=400 with error, L={L} in one launch: kernel "
+                      f"{ms:.3f} ms (CUDA events), bound {bound:.4f} ms ({by})", flush=True)
+                continue
             plain_ms = cuda_ms(lambda: es._plain(*f.values(), nd, 8, track), 2)
-            bound, by = bound_ms(quadratic_flops(G * nd, 6, k, 8),
-                                 screen_bytes(f.values(), G * nd, G))
             times = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
             print(f"[kernel vs plain] k=400 with error: kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms (CUDA events), bound {bound:.4f} ms "
-                  f"({by})", flush=True)
+                  f"({by}); {1e6 * ms / ((k - 1) * 8 * 4):.1f} ns per right-hand side",
+                  flush=True)
     return dict(max_abs_err=max_err, **times)
 
 
@@ -207,49 +264,50 @@ def cahbn_phase():
     error-tracking call."""
     from gp_bayesopinf_torch.ops import cahbn_screen as cs
 
+    from gp_bayesopinf_torch.ops.cahbn_screen import input_stage_times
+    from gp_bayesopinf_torch.pipeline.configs import HeatMultiConfig
+    from gp_bayesopinf_torch.pipeline.pdes_multi import input_func_factory
+
     rng = np.random.default_rng(20261016)
     f32 = torch.float32
     max_err, fields = 0.0, None
-    cases = [(16, 20, 80, 1.0, True), (16, 20, 120, 2.0, False), (16, 7, 80, 1.0, True)]
-    for G, nd, k, t_max, track in cases:
+    # (G, nd, k, t_max, track_error, L); L = 0 is the single-problem form.
+    # L = 5 is ex3's: each trajectory its own q0 and the inputs of its own
+    # (a, b) of the training family.
+    cases = [(16, 20, 80, 1.0, True, 0), (16, 20, 120, 2.0, False, 0), (16, 7, 80, 1.0, True, 0),
+             (16, 20, 80, 1.0, True, 5), (16, 20, 500, 2.0, False, 0),
+             (16, 20, 500, 2.0, False, 5)]
+    params = HeatMultiConfig().input_parameters
+    for G, nd, k, t_max, track, L in cases:
         a = cahbn_case(G, nd, k, t_max, rng, track)
+        if L:
+            ts = input_stage_times(a["t_eval"], 4)
+            a = batched_case(a, L, rng, {
+                "u_stages": lambda ell: input_func_factory(params[ell])(ts).T})
         f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
         kw = dict(nd=nd, substeps=4, newton_iters=6, track_error=track)
-        s_k, e_k = cs.cahbn_ensemble_screen(*a.values(), **kw)
-        torch.cuda.synchronize()
-        s_p, e_p, maxdev = cs._plain(*f.values(), nd, 4, 6, track)
-        lim = f["limits"][None, :]
-        clear = ~torch.isfinite(maxdev) | ((maxdev - lim).abs() > 1e-3 * lim)
-        assert bool(clear.all()), "a draw's maxdev lies within 1e-3 of its limit"
-        assert torch.equal(s_k, s_p), f"flags differ: {torch.nonzero(s_k != s_p).flatten()}"
-        assert not bool(s_k[3]), "the NaN draw came out stable"
-        by_cand = s_p.reshape(G, nd).all(dim=1)
-        assert not bool(by_cand[-1]) and not bool(by_cand[-2]) and bool(by_cand[1:-2].all())
-        if track:
-            ok = by_cand & torch.isfinite(e_p)
-            assert int(ok.sum()) >= G - 3
-            torch.testing.assert_close(e_k[ok], e_p[ok], rtol=1e-3, atol=0.0)
-            max_err = max(max_err, float((e_k[ok] - e_p[ok]).abs().max()))
-        else:
-            assert bool((e_k == 0).all())
-        print(f"[kernel B vs plain] G={G} nd={nd} k={k} track_error={track}: "
-              f"flags identical ({int(s_k.sum())}/{s_k.numel()} stable)", flush=True)
-        if (nd, k, track) == (20, 80, True):
-            ms = cuda_ms(lambda: cs.cahbn_ensemble_screen_cuda(*f.values(), **kw), 10)
+        if k < 500:  # the plain version takes ~5 s a problem at k = 80
+            s_k, e_k = cs.cahbn_ensemble_screen(*a.values(), **kw)
+            torch.cuda.synchronize()
+            s_p, e_p, maxdev = cs._plain(*f.values(), nd, 4, 6, track)
+            err = hold("B", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd, track, L > 0)
+            max_err = max(max_err, err)
+            print(f"[kernel B vs plain] G={G} nd={nd} k={k} track_error={track} L={L or 1}: "
+                  f"flags identical ({int(s_k.sum())}/{s_k.numel()} stable)", flush=True)
+        if nd != 20 or (k, track) not in ((80, True), (500, False)):
+            continue
+        ms = cuda_ms(lambda: cs.cahbn_ensemble_screen_cuda(*f.values(), **kw), 10 if k == 80 else 5)
+        flops = cahbn_flops(G * nd, 5, 2, k, 4, 6) * (L or 1)
+        bound, by = bound_ms(flops, screen_bytes(f.values(), (L or 1) * G * nd, (L or 1) * G))
+        newton_ns = 1e6 * ms / ((k - 1) * 4 * 2 * 6)
+        print(f"[kernel B] k={k} track_error={track} L={L or 1} in one launch: kernel {ms:.3f} "
+              f"ms (CUDA events), bound {bound:.4f} ms ({by}); {newton_ns:.1f} ns per Newton "
+              "step", flush=True)
+        if (k, L) == (80, 0):
             plain_ms = cuda_ms(lambda: cs._plain(*f.values(), nd, 4, 6, track), 1)
-            bound, by = bound_ms(cahbn_flops(G * nd, 5, 2, k, 4, 6),
-                                 screen_bytes(f.values(), G * nd, G))
             fields = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
-            print(f"[kernel B vs plain] k=80 with error: kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms (CUDA events), bound {bound:.4f} ms ({by})", flush=True)
-    # The prediction grid of the ex3 search: k = 500 over [0, 2], no error.
-    a = cahbn_case(16, 20, 500, 2.0, rng, False)
-    f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
-    kw = dict(nd=20, substeps=4, newton_iters=6, track_error=False)
-    ms = cuda_ms(lambda: cs.cahbn_ensemble_screen_cuda(*f.values(), **kw), 5)
-    bound, by = bound_ms(cahbn_flops(320, 5, 2, 500, 4, 6), screen_bytes(f.values(), 320, 16))
-    print(f"[kernel B] k=500 without error: kernel {ms:.3f} ms (CUDA events), "
-          f"bound {bound:.4f} ms ({by})", flush=True)
+            print(f"[kernel B vs plain] k=80 with error: plain {plain_ms:.3f} ms (CUDA events)",
+                  flush=True)
     return dict(max_abs_err=max_err, **fields)
 
 
@@ -266,16 +324,44 @@ def read_launches():
             "cahbn_ensemble_screen": cahbn_screen.launches}
 
 
+def run_counted(argv, kernel):
+    """Run the CLI on ``argv`` with the launch counts set to 0 just before;
+    returns (result, wall seconds, ``kernel``'s launches, objective
+    evaluations of the regularization search)."""
+    from gp_bayesopinf_torch.bayes import regsearch
+    from gp_bayesopinf_torch.pipeline import cli
+
+    evaluations = 0
+    make = regsearch._kernel_objective
+
+    def counted(*args, **kwargs):
+        objective = make(*args, **kwargs)
+
+        def evaluate(lams, xi):
+            nonlocal evaluations
+            evaluations += 1
+            return objective(lams, xi)
+
+        return evaluate
+
+    regsearch._kernel_objective = counted
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = cli.run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()[kernel]
+    finally:
+        regsearch._kernel_objective = make
+    return res, wall, launches, evaluations
+
+
 def pipeline_phase():
     """Phase 5; returns the kernel A launches of the run."""
-    from gp_bayesopinf_torch.pipeline import cli, ensemble_error
+    from gp_bayesopinf_torch.pipeline import ensemble_error
 
-    reset_launches()
-    t0 = time.perf_counter()
-    res = cli.run(EX1A)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches()["quadratic_ensemble_screen"]
+    res, wall, launches, evals = run_counted(EX1A, "quadratic_ensemble_screen")
 
     n_valid = int(res.valid.sum())
     err = ensemble_error(res)
@@ -283,8 +369,9 @@ def pipeline_phase():
           + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
     print(f"[ex1a] lambda {res.regularizer:.6e}, "
           f"valid {n_valid}/600, ensemble-mean error vs compressed truth {err:.4f}, "
-          f"kernel launches {launches}", flush=True)
+          f"kernel launches {launches} in {evals} objective evaluations", flush=True)
     assert launches >= 12, f"only {launches} kernel launches in the ex1a run"
+    assert launches == 2 * evals, f"{launches} launches in {evals} evaluations"
     assert math.isfinite(res.regularizer) and res.regularizer > 0
     assert n_valid >= 420, f"only {n_valid}/600 draws valid"
     assert bool(torch.isfinite(res.draws_compressed[res.valid]).all())
@@ -295,14 +382,9 @@ def pipeline_phase():
 
 def heat_phase():
     """Phase 6; returns the kernel B launches of the run."""
-    from gp_bayesopinf_torch.pipeline import cli, ensemble_errors
+    from gp_bayesopinf_torch.pipeline import ensemble_errors
 
-    reset_launches()
-    t0 = time.perf_counter()
-    res = cli.run(EX3)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches()["cahbn_ensemble_screen"]
+    res, wall, launches, evals = run_counted(EX3, "cahbn_ensemble_screen")
 
     n_valid = res.valid.sum(dim=1).tolist()
     errs, err_new = ensemble_errors(res)
@@ -311,11 +393,14 @@ def heat_phase():
           + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
     print(f"[ex3] lambda {res.regularizer:.6e}, valid {n_valid} of 600 per trajectory, "
           f"{int(res.newparam_valid.sum())}/600 at the test parameters; kernel B "
-          f"launches {launches}", flush=True)
+          f"launches {launches} in {evals} objective evaluations", flush=True)
     print(f"[ex3] ensemble-mean errors vs compressed truth {[round(e, 4) for e in errs]}, "
           f"test {err_new:.4f}; vs full-state truth {[round(e, 4) for e in full]}, "
           f"test {full_new:.4f}", flush=True)
-    assert launches >= 60, f"only {launches} kernel B launches in the ex3 run"
+    # One launch per time grid for all five trajectories: 2 per objective
+    # evaluation, at least 12 for the 81-point grid in chunks of 16.
+    assert launches >= 12, f"only {launches} kernel B launches in the ex3 run"
+    assert launches == 2 * evals, f"{launches} kernel B launches in {evals} evaluations"
     assert math.isfinite(res.regularizer) and res.regularizer > 0
     assert min(n_valid) >= 420, f"valid draws per trajectory {n_valid}"
     assert bool(torch.isfinite(res.draws_compressed[res.valid]).all())

@@ -56,35 +56,38 @@ def _kernel_objective(
     norms = torch.sqrt(torch.sum(snapshots_est**2, dim=(1, 2))).to(torch.float32)
 
     grids = {"pred": t_pred, "est": t_est}
+    # One screen call per time grid screens all L trajectories (the
+    # kernels take them in one launch).
     if rom.structure == "cAH":
-        def screen(ohats, ell, which, snaps=None, **kw):
+        def screen(ohats, which, snaps=None, **kw):
             return quadratic_ensemble_screen(
-                ohats, initial_conditions[ell], grids[which], shifts[ell], limits[ell],
-                snaps, nd=ndraws, substeps=rom.substeps, **kw,
+                ohats, initial_conditions, grids[which], shifts, limits, snaps,
+                nd=ndraws, substeps=rom.substeps, **kw,
             )
     else:  # "cAHBN": the implicit screen, inputs tabulated at every stage time
-        # Input functions map (n,) times to (m, n); the screen takes (n, m).
+        # Input functions map (n,) times to (m, n); the screen takes (L, n, m).
         u_tables = {
-            which: [f(input_stage_times(t, rom.substeps)).T for f in input_funcs]
+            which: torch.stack([f(input_stage_times(t, rom.substeps)).T for f in input_funcs])
             for which, t in grids.items()
         }
 
-        def screen(ohats, ell, which, snaps=None, **kw):
+        def screen(ohats, which, snaps=None, **kw):
             return cahbn_ensemble_screen(
-                ohats, initial_conditions[ell], grids[which], shifts[ell], limits[ell],
-                u_tables[which][ell], snaps, nd=ndraws, substeps=rom.substeps, **kw,
+                ohats, initial_conditions, grids[which], shifts, limits, u_tables[which],
+                snaps, nd=ndraws, substeps=rom.substeps, **kw,
             )
 
     def objective(lams: torch.Tensor, xi: torch.Tensor) -> np.ndarray:
         C = lams.shape[0]
         stable = lstsq.posterior_spd(lams)  # (C,)
         ohats = lstsq.sample(lams, xi=xi).reshape(C * ndraws, r, -1)
+        st_p, _ = screen(ohats, "pred", track_error=False)  # (L, C ndraws)
+        st_e, err_sq = screen(ohats, "est", snapshots_est)  # (L, C ndraws), (L, C)
+        # Combined in trajectory order, as the reference does.
         err = torch.zeros(C, dtype=torch.float32, device=lams.device)
         for ell in range(L):
-            st_p, _ = screen(ohats, ell, "pred", track_error=False)
-            st_e, err_sq = screen(ohats, ell, "est", snapshots_est[ell])
-            stable = stable & torch.all((st_p & st_e).reshape(C, ndraws), dim=1)
-            err = err + torch.sqrt(err_sq) / norms[ell]
+            stable = stable & torch.all((st_p[ell] & st_e[ell]).reshape(C, ndraws), dim=1)
+            err = err + torch.sqrt(err_sq[ell]) / norms[ell]
         err = err / L
         ok = stable & torch.isfinite(err)
         return torch.where(ok, err.to(torch.float64), MAXOPTVAL).cpu().numpy()

@@ -15,12 +15,17 @@ an unpivoted elimination per draw, the inputs read from a table of u at
 every time the integrator touches (``input_stage_times``), the state
 clipped to +-1e6 after every substep, NaN kept.
 
+One problem (q0 of shape (r,)) or L problems at once, one per
+trajectory (a leading L on q0, shift, limits, u_stages and snapshots),
+as in ``ops.ensemble_screen``.
+
 Two implementations with one contract, both float32:
 
 * ``cahbn_ensemble_screen_cuda``: the hand-written Hopper kernel
-  ``csrc/cahbn_screen.cu`` (see its header for the design);
+  ``csrc/cahbn_screen.cu`` (see its header for the design), all L
+  problems in one launch;
 * ``cahbn_ensemble_screen_torch``: the plain PyTorch version, batched
-  (N, r) states with the XLA twin's algorithm.
+  (N, r) states with the XLA twin's algorithm, one problem after another.
 
 ``cahbn_ensemble_screen`` dispatches on the tensors' device: CPU tensors
 take the plain version, CUDA tensors the kernel, which raises on any
@@ -34,7 +39,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .ensemble_screen import DIVERGE_CAP, MAX_DRAWS_PER_CANDIDATE
+from .ensemble_screen import (
+    DIVERGE_CAP,
+    MAX_DRAWS_PER_CANDIDATE,
+    check_tensors,
+    problem_count,
+    warps_per_candidate,
+)
 from .quadratic import ckron_indices, ckron_jacobian_pattern
 from ..solve.ivp import GAMMA, solve_small
 
@@ -61,7 +72,16 @@ def input_stage_times(t_eval: torch.Tensor, substeps: int) -> torch.Tensor:
 
 def _plain(Ohat, q0, t_eval, shift, limits, u_stages, snapshots, nd, substeps,
            newton_iters, track_error):
-    """The plain screen; returns (stable (N,), err_sq (G,), maxdev (N, r))."""
+    """The plain screen; returns (stable (N,), err_sq (G,), maxdev (N, r)),
+    each with a leading L in the batched form (one problem at a time)."""
+    if q0.ndim == 2:
+        outs = [
+            _plain(Ohat, q0[ell], t_eval, shift[ell], limits[ell], u_stages[ell],
+                   None if snapshots is None else snapshots[ell], nd, substeps,
+                   newton_iters, track_error)
+            for ell in range(q0.shape[0])
+        ]
+        return tuple(torch.stack(parts) for parts in zip(*outs))
     f32 = torch.float32
     N, r, d = Ohat.shape
     G = N // nd
@@ -134,6 +154,8 @@ def cahbn_ensemble_screen_torch(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch screen; same arguments and results as
     ``cahbn_ensemble_screen``."""
+    problem_count(q0, {"shift": (shift, 1), "limits": (limits, 1), "u_stages": (u_stages, 2),
+                       "snapshots": (snapshots if track_error else None, 2)})
     stable, err, _ = _plain(Ohat, q0, t_eval, shift, limits, u_stages, snapshots,
                             nd, substeps, newton_iters, track_error)
     return stable, err
@@ -145,7 +167,7 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("cahbn_screen")
     fn = lib.gpboi_cahbn_screen
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return lib
 
@@ -156,17 +178,17 @@ def cahbn_ensemble_screen_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Hopper kernel; same arguments and results as
     ``cahbn_ensemble_screen``, but every tensor must be a contiguous
-    float32 tensor on one CUDA device. Raises on anything the kernel does
-    not take and on a failed launch."""
+    float32 tensor on one CUDA device. One launch for all problems.
+    Raises on anything the kernel does not take and on a failed launch."""
     global launches
     dev = Ohat.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA screen needs CUDA tensors, got {dev}")
-    if Ohat.ndim != 3 or u_stages.ndim != 2:
-        raise ValueError(f"Ohat must be (N, r, d) and u_stages (n, nu), got "
+    if Ohat.ndim != 3 or u_stages.ndim not in (2, 3):
+        raise ValueError(f"Ohat must be (N, r, d) and u_stages (n, nu) or (L, n, nu), got "
                          f"{tuple(Ohat.shape)} and {tuple(u_stages.shape)}")
     N, r, d = Ohat.shape
-    nu = u_stages.shape[1]
+    nu = u_stages.shape[-1]
     k = t_eval.shape[0]
     if d != 1 + r + r * (r + 1) // 2 + nu + nu * r:
         raise ValueError(f"Ohat has d={d} columns; a 'cAHBN' ROM with r={r}, "
@@ -178,33 +200,31 @@ def cahbn_ensemble_screen_cuda(
         raise ValueError(f"need substeps >= 1, k >= 1 and newton_iters >= 0, got "
                          f"{substeps}, {k}, {newton_iters}")
     track = track_error and snapshots is not None
+    L = problem_count(q0, {"shift": (shift, 1), "limits": (limits, 1),
+                           "u_stages": (u_stages, 2),
+                           "snapshots": (snapshots if track else None, 2)})
+    lead = () if L is None else (L,)
     tensors = {
-        "Ohat": (Ohat, (N, r, d)), "q0": (q0, (r,)), "t_eval": (t_eval, (k,)),
-        "shift": (shift, (r,)), "limits": (limits, (r,)),
-        "u_stages": (u_stages, ((k - 1) * substeps * 3, nu)),
+        "Ohat": (Ohat, (N, r, d)), "q0": (q0, lead + (r,)), "t_eval": (t_eval, (k,)),
+        "shift": (shift, lead + (r,)), "limits": (limits, lead + (r,)),
+        "u_stages": (u_stages, lead + ((k - 1) * substeps * 3, nu)),
     }
     if track:
-        tensors["snapshots"] = (snapshots, (r, k))
-    for name, (x, shape) in tensors.items():
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, Ohat on {dev}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
-        if x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32, got {x.dtype}")
+        tensors["snapshots"] = (snapshots, lead + (r, k))
+    check_tensors(tensors, dev)
 
-    # Draw-minor (r, d, N) layout: the lanes of a warp read consecutive
-    # addresses.
-    OT = Ohat.permute(1, 2, 0).contiguous()
-    stable = torch.empty(N, dtype=torch.bool, device=dev)
-    err_sq = torch.zeros(N // nd, dtype=torch.float32, device=dev)
+    n_prob, G, W = L or 1, N // nd, warps_per_candidate(r, nd)
+    stable = torch.empty((n_prob, N), dtype=torch.bool, device=dev)
+    err_sq = torch.zeros((n_prob, G), dtype=torch.float32, device=dev)
+    partial = torch.empty(n_prob * G * W * k * r if track else 0, dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.gpboi_cahbn_screen(
-            OT.data_ptr(), q0.data_ptr(), t_eval.data_ptr(), u_stages.data_ptr(),
+            Ohat.data_ptr(), q0.data_ptr(), t_eval.data_ptr(), u_stages.data_ptr(),
             shift.data_ptr(), limits.data_ptr(), snapshots.data_ptr() if track else None,
-            N, r, nu, nd, k, substeps, newton_iters, stable.data_ptr(),
-            err_sq.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            n_prob, N, r, nu, nd, W, k, substeps, newton_iters, stable.data_ptr(),
+            partial.data_ptr() if track else None, err_sq.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc == -1:
         raise ValueError(
@@ -214,7 +234,7 @@ def cahbn_ensemble_screen_cuda(
     if rc != 0:
         raise RuntimeError(f"cahbn_screen launch failed: CUDA error {rc}")
     launches += 1
-    return stable, err_sq
+    return (stable[0], err_sq[0]) if L is None else (stable, err_sq)
 
 
 def cahbn_ensemble_screen(
@@ -230,24 +250,27 @@ def cahbn_ensemble_screen(
     newton_iters: int = 6,
     track_error: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Screen all candidate/draw cAHBN ROM integrations.
+    """Screen all candidate/draw cAHBN ROM integrations of one or L
+    problems.
 
     Parameters
     ----------
     Ohat : (N, r, d) "cAHBN" operators, N = G * nd, each candidate's draws
-        contiguous; cast to float32.
-    q0, shift, limits : (r,) initial state and stability envelope.
+        contiguous, shared by all problems; cast to float32.
+    q0, shift, limits : (r,) initial state and stability envelope, or
+        (L, r) for L problems.
     t_eval : (k,) output times.
     u_stages : ((k-1) substeps 3, nu) inputs at ``input_stage_times(t_eval,
-        substeps)``.
-    snapshots : (r, k) error target, or None.
+        substeps)``, or (L, (k-1) substeps 3, nu) for L problems.
+    snapshots : (r, k) error target, (L, r, k) for L problems, or None.
     nd : draws per candidate. substeps : SDIRK2 steps per output interval.
     newton_iters : Newton steps per stage.
 
     Returns
     -------
     stable : (N,) bool. err_sq : (G,) float32, zeros when
-    ``track_error`` is False or ``snapshots`` is None.
+    ``track_error`` is False or ``snapshots`` is None. Both with a leading
+    L for L problems.
     """
     args = (Ohat, q0, t_eval, shift, limits, u_stages, snapshots)
     if Ohat.device.type == "cuda":

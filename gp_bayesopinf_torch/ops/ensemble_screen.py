@@ -11,13 +11,20 @@ quantities from them:
 * per-candidate squared error of the nd-draw mean trajectory against the
   GP state estimates, summed over all output times, t0 included.
 
+Each screen takes one problem (q0 of shape (r,)) or L problems at once,
+one per trajectory (q0 of shape (L, r), and a leading L on every
+per-problem argument); the L problems share the operator draws and the
+time grid.
+
 Two implementations with one contract, both float32 (the screening
 contract; posteriors and final ensembles stay float64):
 
 * ``quadratic_ensemble_screen_cuda``: the hand-written Hopper kernel
-  ``csrc/quadratic_screen.cu`` (see its header for the design);
+  ``csrc/quadratic_screen.cu`` (see its header for the design), all L
+  problems in one launch;
 * ``quadratic_ensemble_screen_torch``: the plain PyTorch version, a
-  batched (N, r) RK4 with a feature concat and an einsum.
+  batched (N, r) RK4 with a feature concat and an einsum, one problem
+  after another.
 
 ``quadratic_ensemble_screen`` dispatches on the tensors' device: CPU
 tensors take the plain version, CUDA tensors the kernel, which raises on
@@ -26,22 +33,70 @@ any failure. Nothing falls back from one to the other.
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .quadratic import ckron_indices
 
 DIVERGE_CAP = 1e6  # must dominate any stability envelope
-MAX_DRAWS_PER_CANDIDATE = 32  # one warp per candidate, one lane per draw
+MAX_DRAWS_PER_CANDIDATE = 32  # the kernels' limit, as the reference's
 
 #: Kernel launches made by ``quadratic_ensemble_screen_cuda`` in this
 #: process. Callers may reset it to 0 to count the launches of one run.
 launches = 0
 
 
+def warps_per_candidate(r: int, nd: int) -> int:
+    """Warps that a candidate's nd draws take in the kernels' layout
+    (``csrc/screen_common.cuh``): each draw takes the power of two >= r
+    lanes, one per operator row (r above 16 has no kernel instance)."""
+    lanes = 1 << (r - 1).bit_length()
+    return -(-nd // max(32 // lanes, 1))
+
+
+def problem_count(q0: torch.Tensor, per_problem: Dict[str, Tuple[Optional[torch.Tensor], int]]):
+    """None for the single-problem form (q0 of shape (r,)); L for the
+    batched form, q0 of shape (L, r). ``per_problem`` maps each other
+    per-problem argument's name to (tensor or None, its rank in the
+    single form); in the batched form each must carry one more axis, of
+    length L. Raises ValueError otherwise."""
+    if q0.ndim == 1:
+        return None
+    if q0.ndim != 2:
+        raise ValueError(f"q0 must be (r,) or (L, r), got {tuple(q0.shape)}")
+    L = q0.shape[0]
+    for name, (x, rank) in per_problem.items():
+        if x is not None and (x.ndim != rank + 1 or x.shape[0] != L):
+            raise ValueError(
+                f"q0 is (L, r) with L={L}, so {name} needs a leading axis of {L} "
+                f"over {rank} more, got {tuple(x.shape)}"
+            )
+    return L
+
+
+def check_tensors(tensors, dev) -> None:
+    """Raise unless each (tensor, shape) of ``tensors`` is a contiguous
+    float32 tensor of that shape on ``dev``."""
+    for name, (x, shape) in tensors.items():
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, Ohat on {dev}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32, got {x.dtype}")
+
+
 def _plain(Ohat, q0, t_eval, shift, limits, snapshots, nd, substeps, track_error):
-    """The plain screen; returns (stable (N,), err_sq (G,), maxdev (N, r))."""
+    """The plain screen; returns (stable (N,), err_sq (G,), maxdev (N, r)),
+    each with a leading L in the batched form (one problem at a time)."""
+    if q0.ndim == 2:
+        outs = [
+            _plain(Ohat, q0[ell], t_eval, shift[ell], limits[ell],
+                   None if snapshots is None else snapshots[ell], nd, substeps, track_error)
+            for ell in range(q0.shape[0])
+        ]
+        return tuple(torch.stack(parts) for parts in zip(*outs))
     f32 = torch.float32
     N, r, d = Ohat.shape
     G = N // nd
@@ -92,6 +147,8 @@ def quadratic_ensemble_screen_torch(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch screen; same arguments and results as
     ``quadratic_ensemble_screen``."""
+    problem_count(q0, {"shift": (shift, 1), "limits": (limits, 1),
+                       "snapshots": (snapshots if track_error else None, 2)})
     stable, err, _ = _plain(
         Ohat, q0, t_eval, shift, limits, snapshots, nd, substeps, track_error
     )
@@ -104,7 +161,7 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("quadratic_screen")
     fn = lib.gpboi_quadratic_screen
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return lib
 
@@ -115,8 +172,8 @@ def quadratic_ensemble_screen_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Hopper kernel; same arguments and results as
     ``quadratic_ensemble_screen``, but every tensor must be a contiguous
-    float32 tensor on one CUDA device. Raises on anything the kernel does
-    not take and on a failed launch."""
+    float32 tensor on one CUDA device. One launch for all problems.
+    Raises on anything the kernel does not take and on a failed launch."""
     global launches
     dev = Ohat.device
     if dev.type != "cuda":
@@ -134,31 +191,28 @@ def quadratic_ensemble_screen_cuda(
     if substeps < 1 or k < 1:
         raise ValueError(f"need substeps >= 1 and k >= 1, got {substeps}, {k}")
     track = track_error and snapshots is not None
+    L = problem_count(q0, {"shift": (shift, 1), "limits": (limits, 1),
+                           "snapshots": (snapshots if track else None, 2)})
+    lead = () if L is None else (L,)
     tensors = {
-        "Ohat": (Ohat, (N, r, d)), "q0": (q0, (r,)), "t_eval": (t_eval, (k,)),
-        "shift": (shift, (r,)), "limits": (limits, (r,)),
+        "Ohat": (Ohat, (N, r, d)), "q0": (q0, lead + (r,)), "t_eval": (t_eval, (k,)),
+        "shift": (shift, lead + (r,)), "limits": (limits, lead + (r,)),
     }
     if track:
-        tensors["snapshots"] = (snapshots, (r, k))
-    for name, (x, shape) in tensors.items():
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, Ohat on {dev}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
-        if x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32, got {x.dtype}")
+        tensors["snapshots"] = (snapshots, lead + (r, k))
+    check_tensors(tensors, dev)
 
-    # Draw-minor (r, d, N) layout: the lanes of a warp read consecutive
-    # addresses.
-    OT = Ohat.permute(1, 2, 0).contiguous()
-    stable = torch.empty(N, dtype=torch.bool, device=dev)
-    err_sq = torch.zeros(N // nd, dtype=torch.float32, device=dev)
+    n_prob, G, W = L or 1, N // nd, warps_per_candidate(r, nd)
+    stable = torch.empty((n_prob, N), dtype=torch.bool, device=dev)
+    err_sq = torch.zeros((n_prob, G), dtype=torch.float32, device=dev)
+    partial = torch.empty(n_prob * G * W * k * r if track else 0, dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.gpboi_quadratic_screen(
-            OT.data_ptr(), q0.data_ptr(), t_eval.data_ptr(), shift.data_ptr(),
+            Ohat.data_ptr(), q0.data_ptr(), t_eval.data_ptr(), shift.data_ptr(),
             limits.data_ptr(), snapshots.data_ptr() if track else None,
-            N, r, nd, k, substeps, stable.data_ptr(), err_sq.data_ptr(),
+            n_prob, N, r, nd, W, k, substeps, stable.data_ptr(),
+            partial.data_ptr() if track else None, err_sq.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc == -1:
@@ -166,7 +220,7 @@ def quadratic_ensemble_screen_cuda(
     if rc != 0:
         raise RuntimeError(f"quadratic_screen launch failed: CUDA error {rc}")
     launches += 1
-    return stable, err_sq
+    return (stable[0], err_sq[0]) if L is None else (stable, err_sq)
 
 
 def quadratic_ensemble_screen(
@@ -180,21 +234,23 @@ def quadratic_ensemble_screen(
     substeps: int = 4,
     track_error: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Screen all candidate/draw ROM integrations.
+    """Screen all candidate/draw ROM integrations of one or L problems.
 
     Parameters
     ----------
     Ohat : (N, r, d) operators, N = G * nd, each candidate's draws
-        contiguous; cast to float32.
-    q0, shift, limits : (r,) initial state and stability envelope.
+        contiguous, shared by all problems; cast to float32.
+    q0, shift, limits : (r,) initial state and stability envelope, or
+        (L, r) for L problems.
     t_eval : (k,) output times.
-    snapshots : (r, k) error target, or None.
+    snapshots : (r, k) error target, (L, r, k) for L problems, or None.
     nd : draws per candidate. substeps : RK4 steps per output interval.
 
     Returns
     -------
     stable : (N,) bool. err_sq : (G,) float32, zeros when
-    ``track_error`` is False or ``snapshots`` is None.
+    ``track_error`` is False or ``snapshots`` is None. Both with a leading
+    L for L problems.
     """
     if Ohat.device.type == "cuda":
         f32 = [

@@ -96,6 +96,59 @@ def test_cahbn_kernel_matches_plain(cuda, r, nu, G, nd):
     torch.testing.assert_close(e_k[ok], e_p[ok], rtol=1e-3, atol=0.0)
 
 
+def _batched(args, L, per_problem, seed):
+    """``args`` of one problem made into L problems: each per-problem
+    argument (by position) gets L variants, the first the original."""
+    rng = np.random.default_rng(seed)
+    out = list(args)
+    for i in per_problem:
+        x = args[i]
+        scale = 0.0 if i in (3, 4) else 0.3  # shift and limits stay
+        out[i] = torch.stack([x] + [x + scale * torch.as_tensor(
+            rng.standard_normal(tuple(x.shape)), device=x.device) for _ in range(L - 1)])
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,G,nd,L", [(6, 4, 20, 2), (3, 5, 7, 3), (12, 2, 32, 2)])
+def test_batched_kernel_matches_plain(cuda, r, G, nd, L):
+    args = _batched(_case(r, G, nd, 40, cuda), L, (1, 3, 4, 5), r)
+    before = es.launches
+    s_k, e_k = es.quadratic_ensemble_screen(*args, nd=nd, substeps=4)
+    torch.cuda.synchronize()
+    assert es.launches == before + 1  # all L problems in one launch
+    s_p, e_p = es.quadratic_ensemble_screen_torch(*args, nd=nd, substeps=4)
+    assert s_k.shape == (L, G * nd) and e_k.shape == (L, G)
+    assert torch.equal(s_k, s_p)
+    ok = s_p.reshape(L, G, nd).all(dim=2)
+    torch.testing.assert_close(e_k[ok], e_p[ok], rtol=1e-3, atol=0.0)
+    # Problem 0 is the single-problem case, launched alone.
+    s_1, e_1 = es.quadratic_ensemble_screen(*[a[0] if i in (1, 3, 4, 5) else a
+                                              for i, a in enumerate(args)], nd=nd, substeps=4)
+    assert torch.equal(s_1, s_k[0])
+    torch.testing.assert_close(e_1, e_k[0], rtol=0.0, atol=0.0, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,nu,G,nd,L", [(5, 2, 4, 20, 5), (3, 2, 5, 7, 2), (8, 1, 3, 32, 2)])
+def test_batched_cahbn_kernel_matches_plain(cuda, r, nu, G, nd, L):
+    args = _batched(_cahbn_case(r, nu, G, nd, 30, 2, cuda), L, (1, 3, 4, 5, 6), r)
+    before = cs.launches
+    s_k, e_k = cs.cahbn_ensemble_screen(*args, nd=nd, substeps=2)
+    torch.cuda.synchronize()
+    assert cs.launches == before + 1  # all L problems in one launch
+    s_p, e_p = cs.cahbn_ensemble_screen_torch(*args, nd=nd, substeps=2)
+    assert s_k.shape == (L, G * nd) and e_k.shape == (L, G)
+    assert torch.equal(s_k, s_p)
+    ok = s_p.reshape(L, G, nd).all(dim=2)
+    assert bool(ok.any())
+    torch.testing.assert_close(e_k[ok], e_p[ok], rtol=1e-3, atol=0.0)
+    s_1, e_1 = cs.cahbn_ensemble_screen(*[a[0] if i in (1, 3, 4, 5, 6) else a
+                                          for i, a in enumerate(args)], nd=nd, substeps=2)
+    assert torch.equal(s_1, s_k[0])
+    torch.testing.assert_close(e_1, e_k[0], rtol=0.0, atol=0.0, equal_nan=True)
+
+
 @pytest.mark.gpu
 def test_cahbn_kernel_rejects_what_it_does_not_take(cuda):
     args = [a.float() for a in _cahbn_case(3, 2, 2, 4, 10, 2, cuda)]
