@@ -13,7 +13,10 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    k = 400 with it), with a diverging candidate, an envelope-rejected
    candidate, a NaN draw, a run with nd = 7, and L = 2 problems in one
    launch with a draw that is NaN in one of them only; time the kernel
-   and the plain version with CUDA events;
+   and the plain version with CUDA events; then the same kernel at the
+   SEIRD screen shapes (r = 5, d = 21, operators made by
+   ``SEIRD2.cah_operators`` of perturbed parameter draws; k = 360 over
+   [0, 90] with the error term, k = 500 over [0, 200] without);
 4. the same for kernel B (SDIRK2 "cAHBN" screen) at the heat ex3 screen
    shapes (G = 16, r = 5, nu = 2, d = 33, 4 substeps, 6 Newton steps,
    the ex3 input family): k = 80 with the error term, k = 120 over [0, 2]
@@ -27,7 +30,13 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
 6. run the full heat ex3 workload (``heat 1.0 20 0.05 80 5 --ndraws
    600``) and check that its search went through kernel B, two launches
    per objective evaluation for all five trajectories, and that every
-   trajectory's ensemble is sound.
+   trajectory's ensemble is sound;
+7. run the full SEIRD ex1a workload (``seird 90 90 0.10 360 --ndraws
+   600``) and check that its search went through kernel A at r = 5, two
+   launches per objective evaluation, that both ensembles are sound and
+   that the posterior mean lies near the true parameters; then hold the
+   Cholesky weight root against the eigh root on that run's GP problem
+   (the same posterior means, rtol 1e-6).
 
 The last two lines of standard output are a JSON summary of the kernels
 and a JSON status line.
@@ -45,6 +54,7 @@ import torch
 
 EX1A = ["euler", "0.06", "200", "0.03", "400", "6", "--ndraws", "600", "--device", "cuda"]
 EX3 = ["heat", "1.0", "20", "0.05", "80", "5", "--ndraws", "600", "--device", "cuda"]
+SEIRD_EX1A = ["seird", "90", "90", "0.10", "360", "--ndraws", "600", "--device", "cuda"]
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "quadratic_ensemble_screen": ("gp_bayesopinf_torch/csrc/quadratic_screen.cu",
                                   "gp_bayesopinf_tpu/ops/ensemble_pallas.py:177"),
@@ -84,6 +94,33 @@ def screen_case(G, nd, k, t_max, rng, track_error):
         snapshots=0.2 * rng.standard_normal((r, k)) if track_error else None,
     )
     return {n: None if v is None else torch.as_tensor(v, device="cuda") for n, v in args.items()}
+
+
+def seird_screen_case(G, nd, k, t_max, rng, track_error, device="cuda"):
+    """SEIRD-shaped screen inputs (r = 5, d = 21) with the outcomes that
+    ``hold`` knows: operators by ``SEIRD2.cah_operators`` of ex1a's true
+    parameters perturbed by 2%, the envelope and the error target from the
+    truth over the training span [0, 90]. Candidate G-1 diverges to the
+    clip (p2 = -1: the exposed grow like e^t), candidate G-2 leaves the envelope
+    (p4 x 30: the deceased pass five times their amplitude), draw 3 has a
+    NaN parameter; every other draw stays inside."""
+    from gp_bayesopinf_torch.models import SEIRD2
+
+    model = SEIRD2((0.25, 0.1, 0.095, 0.0025), substeps=8)
+    params = np.asarray(model.parameters) * (1.0 + 0.02 * rng.standard_normal((G * nd, 1, 4)))
+    params[(G - 1) * nd :, 0, 1] = -1.0
+    params[(G - 2) * nd : (G - 1) * nd, 0, 3] *= 30.0
+    params[3, 0, 1] = np.nan
+    Ohat = model.cah_operators(torch.as_tensor(params, device=device))
+    q0 = torch.tensor([0.994, 0.005, 0.001, 0.0, 0.0], dtype=torch.float64, device=device)
+    t = torch.linspace(0.0, t_max, k, dtype=torch.float64, device=device)
+    span = model.solve(q0, torch.linspace(0.0, 90.0, 360, dtype=torch.float64, device=device))
+    shift = span.mean(dim=1)
+    return dict(
+        Ohat=Ohat, q0=q0, t_eval=t, shift=shift,
+        limits=5.0 * (span - shift[:, None]).abs().amax(dim=1),
+        snapshots=model.solve(q0, t) if track_error else None,
+    )
 
 
 def batched_case(a, L, rng, per_problem):
@@ -200,11 +237,15 @@ def kernel_phase():
     rng = np.random.default_rng(20260817)
     f32 = torch.float32
     max_err, times = 0.0, None
-    # (G, nd, k, t_max, track_error, L); L = 0 is the single-problem form.
-    cases = [(16, 20, 401, 0.15, False, 0), (16, 20, 400, 0.06, True, 0),
-             (16, 7, 400, 0.06, True, 0), (16, 20, 400, 0.06, True, 2)]
-    for G, nd, k, t_max, track, L in cases:
-        a = screen_case(G, nd, k, t_max, rng, track)
+    # (r, G, nd, k, t_max, track_error, L); L = 0 is the single-problem
+    # form; r = 6 is the ex1a shape, r = 5 the SEIRD one.
+    cases = [(6, 16, 20, 401, 0.15, False, 0), (6, 16, 20, 400, 0.06, True, 0),
+             (6, 16, 7, 400, 0.06, True, 0), (6, 16, 20, 400, 0.06, True, 2),
+             (5, 16, 20, 360, 90.0, True, 0), (5, 16, 20, 500, 200.0, False, 0)]
+    seird = {}
+    for r, G, nd, k, t_max, track, L in cases:
+        make = screen_case if r == 6 else seird_screen_case
+        a = make(G, nd, k, t_max, rng, track)
         if L:
             a = batched_case(a, L, rng, {})
         f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
@@ -214,11 +255,20 @@ def kernel_phase():
         s_p, e_p, maxdev = es._plain(*f.values(), nd, 8, track)
         err = hold("A", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd, track, L > 0)
         max_err = max(max_err, err)
-        print(f"[kernel vs plain] G={G} nd={nd} k={k} track_error={track} L={L or 1}: "
+        print(f"[kernel vs plain] r={r} G={G} nd={nd} k={k} track_error={track} L={L or 1}: "
               f"flags identical ({int(s_k.sum())}/{s_k.numel()} stable)", flush=True)
-        if (G, nd, k) == (16, 20, 400):
+        if r == 5:
             ms = cuda_ms(lambda: es.quadratic_ensemble_screen_cuda(*f.values(), **kw), 10)
-            flops = quadratic_flops(G * nd, 6, k, 8) * (L or 1)
+            plain_ms = cuda_ms(lambda: es._plain(*f.values(), nd, 8, track), 1)
+            bound, by = bound_ms(quadratic_flops(G * nd, 5, k, 8),
+                                 screen_bytes(f.values(), G * nd, G))
+            seird[f"k{k}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+            print(f"[kernel vs plain] SEIRD r=5 k={k} track_error={track}: kernel {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms (CUDA events), bound {bound:.4f} ms ({by}); "
+                  f"{1e6 * ms / ((k - 1) * 8 * 4):.1f} ns per right-hand side", flush=True)
+        if (r, G, nd, k) == (6, 16, 20, 400):
+            ms = cuda_ms(lambda: es.quadratic_ensemble_screen_cuda(*f.values(), **kw), 10)
+            flops = quadratic_flops(G * nd, r, k, 8) * (L or 1)
             bound, by = bound_ms(flops, screen_bytes(f.values(), (L or 1) * G * nd, (L or 1) * G))
             if L:
                 print(f"[kernel vs plain] k=400 with error, L={L} in one launch: kernel "
@@ -230,7 +280,7 @@ def kernel_phase():
                   f"plain {plain_ms:.3f} ms (CUDA events), bound {bound:.4f} ms "
                   f"({by}); {1e6 * ms / ((k - 1) * 8 * 4):.1f} ns per right-hand side",
                   flush=True)
-    return dict(max_abs_err=max_err, **times)
+    return dict(max_abs_err=max_err, seird=seird, **times)
 
 
 def cahbn_case(G, nd, k, t_max, rng, track_error):
@@ -412,6 +462,60 @@ def heat_phase():
     return launches
 
 
+def seird_phase():
+    """Phase 7; returns the kernel A launches of the run."""
+    from gp_bayesopinf_torch.gp import batched_gp_estimates
+    from gp_bayesopinf_torch.pipeline.odes import ensemble_error
+    from gp_bayesopinf_torch.solve import weighted_lstsq_fit
+
+    res, wall, launches, evals = run_counted(SEIRD_EX1A, "quadratic_ensemble_screen")
+
+    n_valid, n_valid_new = int(res.valid.sum()), int(res.newic_valid.sum())
+    err, err_new = ensemble_error(res), ensemble_error(res, newic=True)
+    mean = res.bayesian_model.mean.tolist()
+    truth = list(res.model.parameters)
+    print(f"[seird] wall {wall:.2f} s; stages (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
+    print(f"[seird] lambda {res.regularizer:.6e}, valid {n_valid}/600, {n_valid_new}/600 from "
+          f"the new initial conditions; ensemble-mean error vs truth {err:.4f}, new {err_new:.4f}; "
+          f"kernel A launches {launches} in {evals} objective evaluations", flush=True)
+    print("[seird] posterior mean " + ", ".join(f"{m:.5g}" for m in mean)
+          + " against true " + ", ".join(f"{p:.5g}" for p in truth), flush=True)
+    # Two launches per objective evaluation (one per time grid), at least
+    # 4 for the 22-point grid in chunks of 16.
+    assert launches >= 4, f"only {launches} kernel A launches in the SEIRD run"
+    assert launches == 2 * evals, f"{launches} launches in {evals} evaluations"
+    assert math.isfinite(res.regularizer) and res.regularizer > 0
+    assert n_valid >= 420 and n_valid_new >= 420, f"valid draws {n_valid}, {n_valid_new} of 600"
+    assert bool(torch.isfinite(res.draws[res.valid]).all())
+    assert bool(torch.isfinite(res.newic_draws[res.newic_valid]).all())
+    assert err < 0.5 and err_new < 0.5, f"ensemble-mean errors {err:.4f}, {err_new:.4f}"
+    np.testing.assert_allclose(mean, truth, rtol=0.5)
+
+    # The Cholesky weight root against the eigh root on this run's GP
+    # problem (5 GPs, m = 90, m' = 360): one weighted norm, one posterior.
+    dev = res.draws.device
+    gps = res.gps
+    T, Y = torch.stack([g.t_training for g in gps]), torch.stack([g.y for g in gps])
+    hyper = [torch.tensor([getattr(g, name) for g in gps], dtype=torch.float64, device=dev)
+             for name in ("constant", "length_scale", "noise_level")]
+    means = {}
+    for method in ("eigh", "chol"):
+        est = batched_gp_estimates(T, Y, gps[0].t_estimation, *hyper, 1e-8, method=method)
+        assert bool(est.ok.all()), f"{method}: weight covariance not positive definite"
+        fac = weighted_lstsq_fit(
+            res.model.data_matrix_blocks(est.state_estimate), est.weight_root[None],
+            est.ddt_estimate[None], weights_are_cholesky=(method == "chol"),
+        )
+        means[method] = fac.solve(res.regularizer)[0]
+    torch.testing.assert_close(means["eigh"], res.bayesian_model.mean, rtol=1e-9, atol=0.0)
+    torch.testing.assert_close(means["chol"], means["eigh"], rtol=1e-6, atol=0.0)
+    rel = float(((means["chol"] - means["eigh"]) / means["eigh"]).abs().max())
+    print(f"[seird] Cholesky against eigh weight root: posterior means differ by {rel:.2e} "
+          "relative at most", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -437,12 +541,17 @@ def main() -> int:
     fields = {"quadratic_ensemble_screen": kernel_phase(), "cahbn_ensemble_screen": cahbn_phase()}
     fields["quadratic_ensemble_screen"]["launches"] = pipeline_phase()
     fields["cahbn_ensemble_screen"]["launches"] = heat_phase()
+    # Kernel A carries two main paths: its launches are those of both runs.
+    by_path = {"ex1a": fields["quadratic_ensemble_screen"]["launches"], "seird": seird_phase()}
+    fields["quadratic_ensemble_screen"].update(
+        launches=sum(by_path.values()), launches_by_path=by_path)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": f["launches"], "max_abs_err": f["max_abs_err"], "ms": f["ms"],
          "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
-         "library_ms": None}
+         "library_ms": None,
+         **{key: f[key] for key in ("launches_by_path", "seird") if key in f}}
         for name, (source, replaces) in KERNELS.items()
         for f in [fields[name]]
     ]}), flush=True)

@@ -1,11 +1,13 @@
 """Gaussian posteriors over ROM operators and posterior-ensemble prediction
-(counterpart of ``gp_bayesopinf_tpu/bayes/posterior.py``, ``BayesianROM``).
+(counterpart of ``gp_bayesopinf_tpu/bayes/posterior.py``).
 
 ``OperatorPosterior`` holds one Gaussian per operator row, N(mean_i,
 F_i F_i^T), with the covariance factor F_i = V_i diag(1/sqrt(S_i^2 +
 lambda^2)) from the regression's spectral form. A draw is mean + F xi.
 The ensemble integrates all draws as one batch (a leading draw axis) in
 float64 and masks draws that leave the 5x-amplitude envelope or diverge.
+``BayesianROM`` holds a posterior over ROM operators, ``BayesianODE`` one
+Gaussian (a single row) over the parameters of an ODE model.
 """
 
 import dataclasses
@@ -37,6 +39,15 @@ class OperatorPosterior(NamedTuple):
         """Posterior of the weighted regression at regularizer lambda."""
         scale = torch.rsqrt(torch.clamp(lstsq.precision_eigs(lam), min=1e-300))
         return OperatorPosterior(lstsq.solve(lam), lstsq.V * scale[:, None, :])
+
+    @staticmethod
+    def from_moments(means: torch.Tensor, covs: torch.Tensor) -> "OperatorPosterior":
+        """Posterior from dense means (r, d) or (d,) and covariances
+        (r, d, d) or (d, d), factored by Cholesky."""
+        means = torch.atleast_2d(means)
+        if covs.ndim == 2:
+            covs = covs[None]
+        return OperatorPosterior(means, torch.linalg.cholesky(covs))
 
     def covariances(self) -> torch.Tensor:
         return torch.einsum("rik,rjk->rij", self.cov_factors, self.cov_factors)
@@ -104,3 +115,87 @@ class BayesianROM:
             return draws, finite_mask(draws)
         shift, limits = (x[..., None, :] for x in stability_envelope)
         return draws, stability_mask(draws, shift, limits)
+
+
+@dataclasses.dataclass(frozen=True)
+class BayesianODE:
+    """Bayesian posterior over the parameters of an ODE model.
+
+    ``model`` exposes ``solve(initial_conditions, timepoints,
+    parameters=...)`` taking a leading axis of parameter draws
+    (``models.seird.SEIRD2``). The posterior has one row: the d parameters.
+    """
+
+    OVERSAMPLE = 8  # candidates per draw of ``rvs(nonnegative=True)``
+
+    model: object
+    posterior: OperatorPosterior  # r = 1 row, d parameters
+    regularizer: Optional[float] = None
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.posterior.means[0]
+
+    @property
+    def cov(self) -> torch.Tensor:
+        return self.posterior.covariances()[0]
+
+    @property
+    def num_params(self) -> int:
+        return self.posterior.ncols
+
+    def rvs(
+        self,
+        ndraws: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+        xi: Optional[torch.Tensor] = None,
+        nonnegative: bool = False,
+    ) -> torch.Tensor:
+        """Parameter draws (ndraws, d); the standard normals ``xi``,
+        (ndraws, 1, d), come from ``generator`` unless given.
+
+        With ``nonnegative=True`` each draw is the first of
+        ``OVERSAMPLE`` candidates without a negative component (``xi`` is
+        then (OVERSAMPLE ndraws, 1, d), a draw's candidates contiguous),
+        or the mean if it has none.
+        """
+        if not nonnegative:
+            return self.posterior.sample(ndraws, generator, xi)[:, 0, :]
+        if ndraws is not None:
+            ndraws = ndraws * self.OVERSAMPLE
+        pool = self.posterior.sample(ndraws, generator, xi)[:, 0, :]
+        pool = pool.reshape(-1, self.OVERSAMPLE, self.num_params)
+        ok = torch.all(pool >= 0, dim=-1)  # (ndraws, OVERSAMPLE)
+        first = torch.argmax(ok.to(torch.int8), dim=1)  # the first maximum
+        chosen = pool[torch.arange(pool.shape[0], device=pool.device), first]
+        return torch.where(ok.any(dim=1)[:, None], chosen, self.mean)
+
+    def predict(
+        self, initial_conditions: torch.Tensor, timepoints: torch.Tensor,
+        generator: Optional[torch.Generator] = None, xi: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """One posterior draw integrated through the model, (n, k)."""
+        params = self.rvs(1, generator, xi)[0]
+        return self.model.solve(initial_conditions, timepoints, parameters=params)
+
+    def solution_posterior(
+        self,
+        initial_conditions: torch.Tensor,
+        timepoints: torch.Tensor,
+        ndraws: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+        xi: Optional[torch.Tensor] = None,
+        stability_envelope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ):
+        """Posterior ensemble of model solutions from the (n,) initial
+        state, all draws integrated as one batch.
+
+        ``ndraws``, ``generator`` and ``xi`` as in ``rvs``;
+        ``stability_envelope`` an optional (shift (n,), limits (n,)).
+        Returns draws (ndraws, n, k) and valid (ndraws,) bool.
+        """
+        params = self.rvs(ndraws, generator, xi)
+        draws = self.model.solve(initial_conditions, timepoints, parameters=params)
+        if stability_envelope is None:
+            return draws, finite_mask(draws)
+        return draws, stability_mask(draws, *stability_envelope)

@@ -16,8 +16,11 @@ Every candidate's integrations go through an ensemble-screen kernel: the
 RK4 screen (``ops.ensemble_screen``) for an autonomous "cAH" ROM, the
 implicit SDIRK2 screen (``ops.cahbn_screen``) for a "cAHBN" dirk2 ROM
 with per-trajectory inputs. Each takes its Hopper kernel for CUDA tensors
-and its plain PyTorch version for CPU tensors. The generic
-per-trajectory objective and the device-mesh grid wait for later slices.
+and its plain PyTorch version for CPU tensors. A parametric truth model
+whose right-hand side is itself quadratic (SEIRD) takes the same RK4
+screen through a ``KernelScreenSpec`` and an ``operator_map`` from
+parameter draws to operator rows. The generic per-trajectory objective
+and the device-mesh grid wait for later slices.
 """
 
 import logging
@@ -33,6 +36,7 @@ from ..solve.lstsq import WeightedLSTSQ
 
 MAXOPTVAL = 1e12  # objective ceiling of a rejected candidate
 DEFAULT_GRID_PDE = np.logspace(-16, 4, 81)
+DEFAULT_GRID_ODE = np.logspace(-16, 5, 22)
 CHUNK = 16  # candidates per screen call; the refine pads to the same width
 
 
@@ -43,12 +47,27 @@ class RegSearchResult(NamedTuple):
     refined: bool  # True if the 1-D refinement succeeded
 
 
+class KernelScreenSpec(NamedTuple):
+    """What the screen reads off a ``GalerkinROM``, for a search without
+    one: a parametric truth model whose right-hand side is quadratic
+    (SEIRD2, whose parameter draws become "cAH" operator rows through
+    ``SEIRD2.cah_operators``) passes this as ``rom`` together with
+    ``operator_map``."""
+
+    structure: str  # "cAH" (autonomous) or "cAHBN" (with inputs)
+    state_dimension: int
+    substeps: int = 4
+    input_dimension: int = 0
+    ivp_method: str = "rk4"
+
+
 def _kernel_objective(
     lstsq: WeightedLSTSQ, rom, initial_conditions, t_pred, t_est,
     snapshots_est, ndraws: int, input_funcs: Optional[Sequence[Callable]],
+    operator_map: Optional[Callable] = None,
 ):
-    """Batched objective: (lams (C,), xi (C, ndraws, r, d)) -> (C,) float64
-    objective values on the host."""
+    """Batched objective: (lams (C,), xi (C, ndraws, rows, cols)) -> (C,)
+    float64 objective values on the host."""
     L = snapshots_est.shape[0]
     r = rom.state_dimension
     shifts = torch.mean(snapshots_est, dim=2)  # (L, r)
@@ -80,7 +99,10 @@ def _kernel_objective(
     def objective(lams: torch.Tensor, xi: torch.Tensor) -> np.ndarray:
         C = lams.shape[0]
         stable = lstsq.posterior_spd(lams)  # (C,)
-        ohats = lstsq.sample(lams, xi=xi).reshape(C * ndraws, r, -1)
+        draws = lstsq.sample(lams, xi=xi).flatten(0, 1)  # (C ndraws, rows, cols)
+        # A parametric model's draws become operator rows here (SEIRD2:
+        # (1, 4) parameter rows -> (5, 21) "cAH" operators).
+        ohats = draws.reshape(C * ndraws, r, -1) if operator_map is None else operator_map(draws)
         st_p, _ = screen(ohats, "pred", track_error=False)  # (L, C ndraws)
         st_e, err_sq = screen(ohats, "est", snapshots_est)  # (L, C ndraws), (L, C)
         # Combined in trajectory order, as the reference does.
@@ -110,6 +132,7 @@ def auto_regularize(
     xi_refine: Optional[torch.Tensor] = None,
     input_funcs: Optional[Sequence[Callable]] = None,
     refine_failure: str = "fallback",
+    operator_map: Optional[Callable] = None,
 ) -> RegSearchResult:
     """Select the regularization hyperparameter lambda.
 
@@ -118,7 +141,8 @@ def auto_regularize(
     lstsq : the weighted regression's factorization.
     rom : an autonomous "cAH" ``GalerkinROM``, or a "cAHBN" one with
         ``ivp_method="dirk2"`` together with ``input_funcs``; its
-        ``substeps`` set the screen's step.
+        ``substeps`` set the screen's step. Or a ``KernelScreenSpec``
+        together with ``operator_map``.
     initial_conditions : (L, r) or (r,) initial states, one per trajectory.
     t_pred, t_est : prediction and estimation time grids.
     snapshots_est : (L, r, m') or (r, m') GP state estimates.
@@ -135,6 +159,10 @@ def auto_regularize(
     refine_failure : "fallback" to the grid best when the bounded
         refinement fails (the PDEs pipeline), or "raise" a RuntimeError
         (PDEsMulti).
+    operator_map : for a parametric model, the map from a batch of
+        regression draws (N, rows, cols) to (N, r, d) "cAH" operator rows
+        (``SEIRD2.cah_operators``); the draws' r and d above are then the
+        regression's rows and columns.
     """
     if refine_failure not in ("fallback", "raise"):
         raise ValueError("refine_failure must be 'fallback' or 'raise'")
@@ -149,6 +177,13 @@ def auto_regularize(
             f"with input_funcs, got '{rom.structure}' ({rom.ivp_method}, "
             f"input_funcs {'given' if input_funcs is not None else 'None'})"
         )
+    if isinstance(rom, KernelScreenSpec) and operator_map is None:
+        # Without the map, parameter-row draws would be reshaped into
+        # operator rows of the wrong width.
+        raise ValueError(
+            "a KernelScreenSpec rom requires operator_map (the draw -> "
+            "operator-rows expansion, e.g. SEIRD2.cah_operators)"
+        )
     grid = DEFAULT_GRID_PDE if grid is None else np.sort(np.atleast_1d(grid))
     initial_conditions = torch.atleast_2d(initial_conditions)
     if snapshots_est.ndim == 2:
@@ -157,7 +192,7 @@ def auto_regularize(
     shape = (ndraws, lstsq.num_problems, lstsq.num_unknowns)
     objective = _kernel_objective(
         lstsq, rom, initial_conditions, t_pred, t_est, snapshots_est, ndraws,
-        input_funcs,
+        input_funcs, operator_map,
     )
 
     G = len(grid)

@@ -19,6 +19,7 @@ from .bayes.posterior import OperatorPosterior
 from .gp.estimates import GPEstimates
 from .gp.fit import FitResult
 from .gp.gp import GaussianProcess
+from .models.seird import SEIRD, SEIRD2
 from .rom.basis import EulerScaledBasis, QuadraticLiftedBasis
 from .solve.lstsq import WeightedLSTSQ
 from .utils.device import DeviceLike
@@ -42,7 +43,8 @@ def gp_estimates(est, *, device: DeviceLike) -> GPEstimates:
 
 
 def gaussian_processes(gps, *, device: DeviceLike) -> List[GaussianProcess]:
-    """JAX ``GaussianProcess`` objects (dense weight root) to the port's."""
+    """JAX ``GaussianProcess`` objects (a dense weight root, "eigh" or
+    "chol") to the port's."""
     out = []
     for gp in gps:
         arrays = {
@@ -54,6 +56,7 @@ def gaussian_processes(gps, *, device: DeviceLike) -> List[GaussianProcess]:
             constant=float(gp.constant),
             length_scale=float(gp.length_scale),
             noise_level=float(gp.noise_level),
+            weight_method=gp.weight_method,
             **arrays,
         ))
     return out
@@ -79,3 +82,10 @@ def weighted_lstsq(fac, *, device: DeviceLike) -> WeightedLSTSQ:
 
 def operator_posterior(post, *, device: DeviceLike) -> OperatorPosterior:
     return OperatorPosterior(*_fields(post, OperatorPosterior._fields, device))
+
+
+def seird_model(model) -> SEIRD2:
+    """A JAX ``SEIRD2`` or ``SEIRD`` truth model to the port's (plain
+    numbers only, so no device)."""
+    cls = SEIRD if model.num_parameters == 6 else SEIRD2
+    return cls(parameters=tuple(float(p) for p in model.parameters), substeps=int(model.substeps))

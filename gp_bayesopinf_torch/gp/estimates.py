@@ -7,11 +7,14 @@ at the estimation times t_est:
     state_estimate  y~ = kappa_zy K_yy^{-1} y                    (m',)
     ddt_estimate    z~ = K_zy K_yy^{-1} y                        (m',)
     ddt_covariance  C  = K_zz - K_zy K_yy^{-1} K_yz (symmetrized)
-    sqrtW              = (C + eta I)^{-1/2} via eigh             (m', m')
+    weight root        = (C + eta I)^{-1/2} via eigh, or
+                         chol(C + eta I)                         (m', m')
 
 All modes run as one batch on the caller's device in float64. The weight
-root is the symmetric inverse square root (the JAX package's "eigh"
-method, its non-TPU default).
+root is the symmetric inverse square root (method "eigh", the default) or
+the lower Cholesky factor L of C + eta I (method "chol"), which the
+regression applies as L^{-1} by a triangular solve: the same weighted
+norm without an eigendecomposition.
 """
 
 from typing import NamedTuple
@@ -27,7 +30,7 @@ class GPEstimates(NamedTuple):
     state_estimate: torch.Tensor  # (r, m')
     ddt_estimate: torch.Tensor  # (r, m')
     ddt_covariance: torch.Tensor  # (r, m', m')
-    weight_root: torch.Tensor  # (r, m', m') (C + eta I)^{-1/2}
+    weight_root: torch.Tensor  # (r, m', m') (C + eta I)^{-1/2}, or chol(C + eta I)
     ok: torch.Tensor  # (r,) bool: K_yy and C + eta I were SPD
 
     @property
@@ -49,6 +52,18 @@ def spd_inverse_sqrt(C: torch.Tensor, eta: float = 0.0):
     return root, ok
 
 
+def spd_cholesky(C: torch.Tensor, eta: float = 0.0):
+    """(L, ok) with C + eta I = L L^T, L lower triangular, for a batch of
+    symmetric (..., n, n). ``ok`` is False where the factorization broke
+    down; L is garbage there, for the caller to reject."""
+    eye = torch.eye(C.shape[-1], dtype=C.dtype, device=C.device)
+    L, info = torch.linalg.cholesky_ex(C + eta * eye)
+    return L, info == 0
+
+
+WEIGHT_ROOTS = {"eigh": spd_inverse_sqrt, "chol": spd_cholesky}
+
+
 def batched_gp_estimates(
     T: torch.Tensor,
     Y: torch.Tensor,
@@ -57,11 +72,15 @@ def batched_gp_estimates(
     ell: torch.Tensor,
     chi: torch.Tensor,
     eta: float = 1e-8,
+    method: str = "eigh",
 ) -> GPEstimates:
     """Estimates for every mode at once.
 
     ``T`` and ``Y`` are (r, m), ``t_est`` (m',), the hyperparameters (r,).
+    ``method`` picks the weight root: "eigh" or "chol".
     """
+    if method not in WEIGHT_ROOTS:
+        raise ValueError(f"unknown weight method '{method}'")
     K = lstsq_kernel_matrices(T, t_est, sigma2, ell, chi)
     L, info = torch.linalg.cholesky_ex(K.K_yy)
     alpha = torch.cholesky_solve(Y[..., None], L)  # (r, m, 1)
@@ -73,7 +92,7 @@ def batched_gp_estimates(
     cross = K.K_zy @ V
     C = K.K_zz - 0.5 * (cross + cross.transpose(-1, -2))
 
-    root, ok = spd_inverse_sqrt(C, eta)
+    root, ok = WEIGHT_ROOTS[method](C, eta)
     return GPEstimates(state, ddt, C, root, ok & (info == 0))
 
 

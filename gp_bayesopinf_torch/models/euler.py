@@ -63,6 +63,18 @@ class Euler:
         rho_e = p / (cls.gamma - 1.0) + 0.5 * rho * v * v
         return torch.cat([rho, rho_v, rho_e], dim=0)
 
+    @classmethod
+    def lift_ddts(cls, states: torch.Tensor, ddts: torch.Tensor) -> torch.Tensor:
+        """Chain rule: time derivatives of the conservative ``states`` ->
+        time derivatives of [v, p, 1/rho]."""
+        rho, rho_v, _ = cls.split(states)
+        drho, drho_v, drho_e = cls.split(ddts)
+        v = rho_v / rho
+        dv = (drho_v - drho * v) / rho
+        dp = (cls.gamma - 1.0) * (drho_e - rho_v * dv - drho * v * v / 2.0)
+        dzeta = -drho / (rho * rho)
+        return torch.cat([dv, dp, dzeta], dim=0)
+
     # -- initial conditions -----------------------------------------------------
     def initial_conditions(
         self, init_params, device: DeviceLike, dtype=torch.float64

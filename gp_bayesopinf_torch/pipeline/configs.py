@@ -1,7 +1,7 @@
 """Problem configurations (counterpart of
-``gp_bayesopinf_tpu/pipeline/configs.py``, the Euler and heat-multi
-scenarios; defaults match the reference's ``PDEs/config*.py`` and
-``PDEsMulti/config*.py``).
+``gp_bayesopinf_tpu/pipeline/configs.py``, the SEIRD, Euler and
+heat-multi scenarios; defaults match the reference's ``ODEs/config*.py``,
+``PDEs/config*.py`` and ``PDEsMulti/config*.py``).
 """
 
 import dataclasses
@@ -18,6 +18,24 @@ class GPBounds:
     length_scale: Tuple[float, float]
     noise_level: Tuple[float, float]
     n_restarts: int
+
+
+@dataclasses.dataclass(frozen=True)
+class SEIRDConfig:
+    """SEIRD parameter-estimation scenario."""
+
+    time_domain: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.linspace(0, 200, 500)
+    )
+    true_parameters6: Tuple[float, ...] = (1.0, 0.25, 0.1, 0.1, 0.05, 0.05)
+    initial_conditions: Tuple[float, ...] = (0.994, 0.005, 0.001, 0.0, 0.0)
+    test_initial_conditions: Tuple[float, ...] = (0.722, 0.208, 0.070, 0.0, 0.0)
+    gp_bounds: GPBounds = GPBounds((1e-8, 1e5), (0.1, 100.0), (1e-16, 0.5), 100)
+    reg_grid: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.logspace(-16, 5, 22)
+    )
+    seed: int = 21092023
+    substeps: int = 8
 
 
 @dataclasses.dataclass(frozen=True)

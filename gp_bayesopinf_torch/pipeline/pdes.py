@@ -1,6 +1,5 @@
 """Compressible-Euler GP-BayesOpInf pipeline, single trajectory
-(counterpart of ``gp_bayesopinf_tpu/pipeline/pdes.py``, stages 1-5 and
-the decompression; ``--ddtdata`` comes later).
+(counterpart of ``gp_bayesopinf_tpu/pipeline/pdes.py``).
 
 1. Solve the Euler truth model and sample noisy snapshots.
 2. POD compression with the nondimensionalizing Euler basis.
@@ -9,6 +8,8 @@ the decompression; ``--ddtdata`` comes later).
    search through the ensemble-screen kernel, operator posterior.
 5. Posterior ensemble with the 5x-amplitude stability filter,
    decompressed to the full state space.
+6. On request (``ddtdata``), the GP derivative estimates beside finite
+   differences of the samples and the truth model's own derivatives.
 
 Every stage runs on the ``device`` argument, in float64 apart from the
 float32 screen.
@@ -49,6 +50,7 @@ class EulerResult:
     draws: Optional[torch.Tensor] = None  # decompressed valid draws (nv, n, k)
     svdvals: Optional[torch.Tensor] = None
     stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    ddtdata: Optional[Dict[str, np.ndarray]] = None  # see derivative_comparison_data
 
 
 def run_euler(
@@ -70,17 +72,12 @@ def run_euler(
     """Run the Euler experiment start to finish on ``device``.
 
     The arguments are the JAX package's (flagship ex1a is
-    ``(0.0, 0.06), 200, 0.03, 400, 6``) plus ``device``. This slice
-    ports the dense symmetric weight root only (``weight_method`` None,
-    "auto" or "eigh") and not the derivative comparison data
-    (``ddtdata``); other values raise NotImplementedError.
+    ``(0.0, 0.06), 200, 0.03, 400, 6``) plus ``device``.
+    ``weight_method`` picks the dense GP weight root, "eigh" or "chol"
+    (``gp.gp.resolve_weight_method``; the low-rank root is not ported and
+    raises NotImplementedError). ``ddtdata`` fills the result's
+    ``ddtdata`` (``derivative_comparison_data``).
     """
-    if ddtdata:
-        raise NotImplementedError("ddtdata is not ported yet (see ROADMAP.md)")
-    if weight_method not in (None, "auto", "eigh"):
-        raise NotImplementedError(
-            f"weight_method {weight_method!r} is not ported yet; only 'eigh'"
-        )
     dev = resolve_device(device)
     f64 = torch.float64
     config = config or EulerConfig()
@@ -128,6 +125,7 @@ def run_euler(
             n_restarts_optimizer=bounds.n_restarts,
             gp_regularizer=gp_regularizer,
             generator=gens["fit"],
+            weight_method=weight_method,
         )
         if verbose:
             for i, gp in enumerate(gps):
@@ -144,7 +142,9 @@ def run_euler(
         D = rom.data_matrix(state_est)[None]  # (1, m', d)
         rhs = torch.stack([gp.ddt_estimate for gp in gps])[:, None]  # (r, 1, m')
         sqrtW = torch.stack([gp.sqrtW for gp in gps])[:, None]
-        fac = weighted_lstsq_fit(D, sqrtW, rhs)
+        fac = weighted_lstsq_fit(
+            D, sqrtW, rhs, weights_are_cholesky=(gps[0].weight_method == "chol")
+        )
         res = auto_regularize(
             fac, rom, state_est[:, 0], t_pred_t, t_est_t, state_est,
             generator=gens["search"], grid=config.reg_grid, ndraws=20,
@@ -169,6 +169,14 @@ def run_euler(
         with stage("decompress", "decompressing valid draws"):
             draws_full = basis.decompress(draws_c[valid])
 
+    ddt = None
+    if ddtdata:
+        with stage("ddtdata", "derivative comparison data"):
+            ddt = derivative_comparison_data(
+                model, basis, gps, q0_full, t_sampled, snapshots_compressed, t_est,
+                ndraws, generator=gens["draws"],
+            )
+
     return EulerResult(
         model=model,
         basis=basis,
@@ -187,7 +195,53 @@ def run_euler(
         draws=draws_full,
         svdvals=basis.svdvals,
         stage_seconds={name: block.elapsed for name, block in times.items()},
+        ddtdata=ddt,
     )
+
+
+def derivative_comparison_data(
+    model: Euler, basis: EulerScaledBasis, gps, q0_full: torch.Tensor, t_sampled,
+    snapshots_compressed: torch.Tensor, t_est, ndraws: int,
+    generator: Optional[torch.Generator] = None, normals: Optional[torch.Tensor] = None,
+) -> Dict[str, np.ndarray]:
+    """The GP derivative moments beside finite differences of the
+    compressed samples and the truth model's compressed derivatives on
+    1000 times over the estimation span, as NumPy arrays.
+
+    ``ddts_GPstd`` is the standard deviation of ``ndraws`` samples of
+    N(ddt_estimate, ddt_covariance) per mode; their standard normals,
+    (r, ndraws, m'), come from ``generator`` unless given as ``normals``.
+    """
+    means = torch.stack([gp.ddt_estimate for gp in gps])  # (r, m')
+    covs = torch.stack([gp.ddt_covariance for gp in gps])
+    # The covariance is only positive semi-definite, with eigenvalues that
+    # come out negative at roundoff: factor by eigh with a clamped spectrum.
+    w, V = torch.linalg.eigh(0.5 * (covs + covs.transpose(-1, -2)))
+    factor = V * torch.sqrt(torch.clamp(w, min=0.0))[:, None, :]
+    if normals is None:
+        normals = torch.randn(
+            (means.shape[0], ndraws, means.shape[1]), generator=generator,
+            dtype=means.dtype, device=means.device,
+        )
+    samples = means[:, None, :] + normals @ factor.transpose(-1, -2)
+
+    t_sampled = np.asarray(t_sampled)
+    fd = np.gradient(snapshots_compressed.cpu().numpy(), t_sampled, edge_order=2, axis=1)
+
+    t_fine = np.linspace(t_est[0], t_est[-1], 1000)
+    cons = model.unlift(model.solve(q0_full, t_fine))
+    ddt_lifted = model.lift_ddts(cons, model.derivative(0.0, cons))
+    ddt_compressed = basis.entries.T @ basis._pre(ddt_lifted)
+
+    return {
+        "time_domain_FD": t_sampled,
+        "ddts_finitedifferences": fd,
+        "time_domain_GP": np.asarray(t_est),
+        "ddts_GPmean": means.cpu().numpy(),
+        "ddts_GPstd": samples.std(dim=1, correction=0).cpu().numpy(),
+        "time_domain_truth": t_fine,
+        "ddts_truth": ddt_compressed.cpu().numpy(),
+    }
 
 
 def ensemble_error(result: EulerResult) -> float:

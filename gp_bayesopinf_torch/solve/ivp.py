@@ -8,6 +8,8 @@
   ensembles.
 * ``dirk2_solve_np``: its NumPy twin with LAPACK ``dgtsv`` Newton solves,
   for the host truth solves of the tridiagonal heat model.
+* ``rk4_solve_np``: the NumPy twin of ``rk4_solve`` for one trajectory,
+  for the host truth solves of the SEIRD model.
 
 ``lax.scan`` becomes a Python loop, and ``vmap`` over posterior draws
 becomes leading batch axes of the state. A diverging trajectory is
@@ -63,6 +65,28 @@ def rk4_solve(
             )
         out.append(q)
     return torch.stack(out, dim=-1)
+
+
+def rk4_solve_np(rhs: Callable, q0, t_eval, substeps: int = 8) -> np.ndarray:
+    """NumPy twin of ``rk4_solve`` for one trajectory on the host: the
+    same stepping in the same operation order, float64. ``rhs(t, q)``
+    takes and returns (n,) arrays. Returns (n, k) states at ``t_eval``."""
+    q = np.asarray(q0, dtype=np.float64).copy()
+    t = np.asarray(t_eval, dtype=np.float64)
+    out = np.empty((t.size, q.size), dtype=np.float64)
+    out[0] = q
+    for i in range(t.size - 1):
+        t0 = t[i]
+        h = (t[i + 1] - t0) / substeps
+        for s in range(substeps):
+            ts = t0 + s * h
+            k1 = rhs(ts, q)
+            k2 = rhs(ts + 0.5 * h, q + 0.5 * h * k1)
+            k3 = rhs(ts + 0.5 * h, q + 0.5 * h * k2)
+            k4 = rhs(ts + h, q + h * k3)
+            q = np.clip(q + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4), -CLAMP, CLAMP)
+        out[i + 1] = q
+    return out.T
 
 
 def solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

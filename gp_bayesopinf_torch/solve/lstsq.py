@@ -1,6 +1,6 @@
 """Weighted, regularized least squares through one batched SVD
-(counterpart of ``gp_bayesopinf_tpu/solve/lstsq.py``, dense symmetric-root
-weighting; the Tikhonov variants and factored roots come later).
+(counterpart of ``gp_bayesopinf_tpu/solve/lstsq.py``, dense weight roots;
+the Tikhonov variants and factored roots come later).
 
 For each operator row i = 1..r the Bayesian regression solves
 
@@ -87,19 +87,28 @@ class WeightedLSTSQ(NamedTuple):
         inv = 1.0 / self.precision_eigs(lam)
         return torch.einsum("rik,...rk,rjk->...rij", self.V, inv, self.V)
 
+    def precisions(self, lam) -> torch.Tensor:
+        """Dense posterior precisions (..., r, d, d)."""
+        return torch.einsum("rik,...rk,rjk->...rij", self.V, self.precision_eigs(lam), self.V)
+
 
 def weighted_lstsq_fit(
-    D_blocks: torch.Tensor, weight_roots: torch.Tensor, rhs: torch.Tensor
+    D_blocks: torch.Tensor, weight_roots: torch.Tensor, rhs: torch.Tensor,
+    weights_are_cholesky: bool = False,
 ) -> WeightedLSTSQ:
     """Weight the blocks and factorize every row problem at once.
 
     Parameters
     ----------
     D_blocks : (B, m, d) unweighted data-matrix blocks (B = 1 for one
-        trajectory).
-    weight_roots : (r, B, m, m) symmetric roots R with W = R^T R (the GP
-        ``sqrtW`` matrices).
+        trajectory, the number of state variables for the ODE parameter
+        problem, the number of trajectories for several).
+    weight_roots : (r, B, m, m) roots R with W = R^T R (the GP ``sqrtW``
+        matrices).
     rhs : (r, B, m) unweighted right-hand sides (GP ddt estimates).
+    weights_are_cholesky : the roots are lower Cholesky factors L of the
+        weights' inverses (the GP derivative covariance C + eta I =
+        L L^T), applied as L^{-1} by triangular solves.
     """
     r, B, m, _ = weight_roots.shape
     d = D_blocks.shape[-1]
@@ -110,8 +119,13 @@ def weighted_lstsq_fit(
     if B * m < d:
         raise ValueError("underdetermined problem: need B*m >= d")
 
-    Dt = torch.einsum("rbij,bjd->rbid", weight_roots, D_blocks).reshape(r, B * m, d)
-    zt = torch.einsum("rbij,rbj->rbi", weight_roots, rhs).reshape(r, B * m)
+    if weights_are_cholesky:
+        Dt = torch.linalg.solve_triangular(weight_roots, D_blocks[None], upper=False)
+        zt = torch.linalg.solve_triangular(weight_roots, rhs[..., None], upper=False)
+    else:
+        Dt = torch.einsum("rbij,bjd->rbid", weight_roots, D_blocks)
+        zt = torch.einsum("rbij,rbj->rbi", weight_roots, rhs)
+    Dt, zt = Dt.reshape(r, B * m, d), zt.reshape(r, B * m)
     U, S, Vh = torch.linalg.svd(Dt, full_matrices=False)
     V = Vh.transpose(-1, -2)
     Utz = torch.einsum("rmd,rm->rd", U, zt)

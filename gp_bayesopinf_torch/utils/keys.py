@@ -22,6 +22,13 @@ STAGES = ("sample", "noise", "fit", "search", "draws")
 #: the same state whatever the count, so the first five streams are
 #: ``STAGES``'s.
 MULTI_STAGES = STAGES + ("newparam",)
+#: The ODE pipeline's stages: its data stage draws times and noise from one
+#: host stream, and the ensemble from unseen initial conditions has its own.
+ODE_STAGES = ("sample", "fit", "search", "draws", "newic")
+
+
+def _children(seed: int, names: Sequence[str]):
+    return zip(names, np.random.SeedSequence(seed).spawn(len(names)))
 
 
 def stage_generators(
@@ -29,8 +36,15 @@ def stage_generators(
 ) -> Dict[str, torch.Generator]:
     """One seeded ``torch.Generator`` on ``device`` per stage name."""
     out = {}
-    for name, child in zip(names, np.random.SeedSequence(seed).spawn(len(names))):
+    for name, child in _children(seed, names):
         gen = torch.Generator(device=device)
         gen.manual_seed(int(child.generate_state(1, dtype=np.uint64)[0]))
         out[name] = gen
     return out
+
+
+def host_rng(seed: int, name: str, names: Sequence[str] = STAGES) -> np.random.Generator:
+    """The NumPy ``Generator`` of stage ``name``, for a stage that draws on
+    the host; seeded from the same child of the seed as the stage's
+    ``torch.Generator`` would be."""
+    return np.random.default_rng(dict(_children(seed, names))[name])

@@ -3,14 +3,17 @@ flagship runs on one CUDA card.
 
     python3 scripts/torch_stage_profile.py heat [--seeds 29012024 1 2] [--profile] [--ladder]
     python3 scripts/torch_stage_profile.py euler [--seeds 27092023] [--profile]
+    python3 scripts/torch_stage_profile.py seird [--seeds 21092023 1 2] [--profile]
 
 Builds the screen kernels first, so no run pays for nvcc. Then, for each
 seed, runs the flagship workload (heat ex3: ``1.0 20 0.05 80 5``, euler
-ex1a: ``0.06 200 0.03 400 6``; 600 draws) on ``cuda`` and prints one JSON
+ex1a: ``0.06 200 0.03 400 6``, seird ex1a: ``90 90 0.10 360``; 600 draws)
+on ``cuda`` and prints one JSON
 line: the card (name, power limit), the seed, the stage wall seconds, the
 chosen lambda, the valid draws, the screen-kernel launches and the
 relative ensemble-mean errors against the compressed truth (heat: also
-against the full-state truth, the reference's own metric). With
+against the full-state truth, the reference's own metric; seird: against
+the truth, with the posterior mean beside the true parameters). With
 ``--profile`` the first seed is run once more under ``torch.profiler``,
 and its line adds, for each stage, the device operations (kernels and
 copies) launched in it, the time the device was busy with them and its
@@ -42,16 +45,19 @@ from gp_bayesopinf_torch.ops.build import build  # noqa: E402
 from gp_bayesopinf_torch.pipeline import (  # noqa: E402
     EulerConfig,
     HeatMultiConfig,
+    SEIRDConfig,
     ensemble_error,
     ensemble_errors,
     run_euler,
     run_heat_multi,
+    run_seird,
 )
-from gp_bayesopinf_torch.pipeline import pdes_multi  # noqa: E402
+from gp_bayesopinf_torch.pipeline import odes, pdes_multi  # noqa: E402
 
 WORKLOADS = {
     "heat": (run_heat_multi, HeatMultiConfig, ((0.0, 1.0), 20, 0.05, 80, 5)),
     "euler": (run_euler, EulerConfig, ((0.0, 0.06), 200, 0.03, 400, 6)),
+    "seird": (run_seird, SEIRDConfig, ((0.0, 90.0), 90, 0.10, 360)),
 }
 
 
@@ -148,6 +154,11 @@ def run_once(name, seed, profile=False):
                     valid_test=int(res.newparam_valid.sum()),
                     err_compressed=errs, err_compressed_test=err_new,
                     err_full=full, err_full_test=full_new)
+    elif name == "seird":
+        line.update(valid=int(res.valid.sum()), valid_newic=int(res.newic_valid.sum()),
+                    err=odes.ensemble_error(res), err_newic=odes.ensemble_error(res, newic=True),
+                    posterior_mean=res.bayesian_model.mean.tolist(),
+                    true_parameters=list(res.model.parameters))
     else:
         line.update(valid=int(res.valid.sum()), err_compressed=ensemble_error(res))
     if profile:

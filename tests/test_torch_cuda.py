@@ -51,6 +51,41 @@ def test_kernel_matches_plain(cuda, r, G, nd):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k,t_max,track", [(360, 90.0, True), (500, 200.0, False)])
+def test_kernel_matches_plain_on_seird_operators(cuda, k, t_max, track):
+    """Kernel A at r = 5, d = 21 on operators that ``SEIRD2.cah_operators``
+    makes of perturbed parameter draws (the SEIRD search's shapes: 16
+    candidates of 20 draws, 8 substeps), the last candidate diverging."""
+    from gp_bayesopinf_torch.models import SEIRD2
+
+    rng = np.random.default_rng(13)
+    G, nd = 16, 20
+    model = SEIRD2((0.25, 0.1, 0.095, 0.0025), substeps=8)
+    draws = np.asarray(model.parameters) * (1.0 + 0.02 * rng.standard_normal((G * nd, 1, 4)))
+    draws[-nd:, 0, 1] = -1.0  # the exposed grow like e^t: to the clip
+    Ohat = model.cah_operators(torch.as_tensor(draws, device=cuda))
+    assert Ohat.shape == (G * nd, 5, 21)
+    q0 = torch.tensor([0.994, 0.005, 0.001, 0.0, 0.0], dtype=torch.float64, device=cuda)
+    t = torch.linspace(0.0, t_max, k, dtype=torch.float64, device=cuda)
+    truth = model.solve(q0, t)
+    shift = truth.mean(dim=1)
+    limits = 5.0 * (truth - shift[:, None]).abs().amax(dim=1)
+    before = es.launches
+    s_k, e_k = es.quadratic_ensemble_screen(Ohat, q0, t, shift, limits, truth, nd=nd,
+                                            substeps=8, track_error=track)
+    torch.cuda.synchronize()
+    assert es.launches == before + 1
+    s_p, e_p = es.quadratic_ensemble_screen_torch(Ohat, q0, t, shift, limits, truth, nd=nd,
+                                                  substeps=8, track_error=track)
+    assert torch.equal(s_k, s_p)
+    assert bool(s_k[:-nd].all()) and not bool(s_k[-nd:].any())
+    if track:
+        torch.testing.assert_close(e_k[:-1], e_p[:-1], rtol=1e-3, atol=0.0)
+    else:
+        assert bool((e_k == 0).all())
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
     args = [a.float() for a in _case(3, 2, 4, 10, cuda)]
     with pytest.raises(ValueError, match="nd"):

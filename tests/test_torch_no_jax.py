@@ -1,7 +1,9 @@
 """The PyTorch port imports no JAX: in a fresh interpreter, importing every
 module of ``gp_bayesopinf_torch`` and running a forward call through the
-GP, the regression, both screens and a cAHBN ROM integration with inputs
-leaves ``jax`` out of ``sys.modules``."""
+GP, the regression, both screens, a cAHBN ROM integration with inputs and
+a SEIRD search and ensemble leaves ``jax`` out of ``sys.modules``; the
+SEIRD part runs with ``jax`` and ``gp_bayesopinf_tpu`` blocked from
+import."""
 
 import os
 import subprocess
@@ -53,6 +55,35 @@ stable, err = cahbn_ensemble_screen(O, st[:, 0], t_est, st.mean(1), torch.full((
                                     u_tab, st, nd=2, substeps=2)
 assert stable.shape == (4,) and err.shape == (2,)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+
+# From here on an import of jax or of the JAX package fails.
+import importlib.abc
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "gp_bayesopinf_tpu"):
+            raise ImportError(f"{name} is blocked in this test")
+sys.meta_path.insert(0, Block())
+
+import numpy as np
+from gp_bayesopinf_torch.bayes import BayesianODE, KernelScreenSpec, OperatorPosterior
+from gp_bayesopinf_torch.bayes import auto_regularize
+from gp_bayesopinf_torch.models import SEIRD2
+from gp_bayesopinf_torch.pipeline import GPBounds, SEIRDConfig, run_seird
+
+cfg = SEIRDConfig(time_domain=np.linspace(0, 90, 31),
+                  gp_bounds=GPBounds((1e-8, 1e5), (0.1, 100.0), (1e-16, 0.5), 4),
+                  reg_grid=np.logspace(-6, 2, 3))
+res = run_seird((0.0, 60.0), 24, 0.05, 32, ndraws=8, config=cfg, device="cpu", verbose=False)
+assert res.draws.shape == (8, 5, 31) and res.regularizer > 0
+model = res.model
+post = res.bayesian_model.posterior
+ode = BayesianODE(model, post)
+draws, valid = ode.solution_posterior(torch.tensor(cfg.initial_conditions, dtype=torch.float64),
+                                      torch.linspace(0, 90, 31, dtype=torch.float64), 6,
+                                      generator=gen)
+assert draws.shape == (6, 5, 31) and bool(valid.any())
+assert model.cah_operators(ode.rvs(5, generator=gen)[:, None, :]).shape == (5, 5, 21)
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "gp_bayesopinf_tpu") for m in sys.modules)
 print("ok")
 """
 
@@ -60,6 +91,6 @@ print("ok")
 def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")

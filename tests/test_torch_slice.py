@@ -13,6 +13,10 @@ the singular vectors' signs, which the replayed normals depend on.
 
 Part 2 runs the port's own ``run_euler`` end to end with its own random
 streams and holds its ensemble error to within 2x of JAX's.
+
+Part 3 holds the derivative comparison data (``--ddtdata``) against the
+JAX package's on JAX's GP products and basis, the normals replayed, and
+runs the ``euler`` command line with ``--ddtdata --weights chol``.
 """
 
 import numpy as np
@@ -30,6 +34,7 @@ from gp_bayesopinf_tpu.gp.nlml import BoxTransform as JBox
 from gp_bayesopinf_tpu.models import Euler as JEuler
 from gp_bayesopinf_tpu.pipeline.configs import EulerConfig as JConfig
 from gp_bayesopinf_tpu.pipeline.configs import GPBounds as JGPBounds
+from gp_bayesopinf_tpu.pipeline.pdes import _derivative_comparison_data
 from gp_bayesopinf_tpu.rom import EulerScaledBasis as JBasis
 from gp_bayesopinf_tpu.rom import GalerkinROM as JROM
 from gp_bayesopinf_tpu.solve import weighted_lstsq_fit as j_lstsq_fit
@@ -39,7 +44,9 @@ from gp_bayesopinf_torch.bayes import MAXOPTVAL, BayesianROM, OperatorPosterior
 from gp_bayesopinf_torch.bayes import auto_regularize
 from gp_bayesopinf_torch.gp import fit_gaussian_processes
 from gp_bayesopinf_torch.models import Euler
-from gp_bayesopinf_torch.pipeline import EulerConfig, GPBounds, ensemble_error, run_euler
+from gp_bayesopinf_torch.pipeline import (
+    EulerConfig, GPBounds, cli, derivative_comparison_data, ensemble_error, pdes, run_euler,
+)
 from gp_bayesopinf_torch.rom import EulerScaledBasis, GalerkinROM
 from gp_bayesopinf_torch.solve import weighted_lstsq_fit
 
@@ -210,3 +217,86 @@ def test_run_euler_end_to_end(jax_run):
                                       "ensemble", "decompress"}
     err = ensemble_error(res)
     assert err <= 2.0 * jax_run["err"], (err, jax_run["err"])
+
+
+def test_lift_ddts_matches_jax(rng):
+    cons = np.abs(rng.standard_normal((3 * 7, 4))) + 1.0
+    ddts = rng.standard_normal((3 * 7, 4))
+    np.testing.assert_allclose(
+        Euler.lift_ddts(_t(cons), _t(ddts)).numpy(),
+        np.asarray(JEuler.lift_ddts(jnp.asarray(cons), jnp.asarray(ddts))), rtol=1e-13,
+    )
+
+
+def test_derivative_comparison_data_matches_jax(jax_run):
+    """Every array of the comparison data against the reference's. The
+    finite differences and the GP means are the same arithmetic (rtol
+    1e-12); the truth derivatives go through a 1000-point solve in each
+    package (rtol 1e-8 of their scale); the sample standard deviations
+    through each package's eigh of the rank-deficient covariance (rtol
+    1e-6 of each mode's largest)."""
+    j = jax_run
+    cfg, ndraws = j["cfg"], 30
+    jmodel = JEuler(cfg.spatial_domain, substeps=cfg.fom_substeps)
+    want = _derivative_comparison_data(
+        jmodel, j["basis"], j["gps"], cfg, j["t_s"], jnp.asarray(j["sc"]), j["t_est"],
+        j["keys"]["draws"], ndraws,
+    )
+    normals = np.stack([np.asarray(jax.random.normal(jax.random.fold_in(j["keys"]["draws"], i),
+                                                     (ndraws, MPRIME))) for i in range(R)])
+    model = Euler(cfg.spatial_domain, substeps=cfg.fom_substeps)
+    got = derivative_comparison_data(
+        model, convert.euler_scaled_basis(j["basis"], device="cpu"),
+        convert.gaussian_processes(j["gps"], device="cpu"),
+        model.initial_conditions(cfg.init_params, device="cpu"), j["t_s"], _t(j["sc"]),
+        j["t_est"], ndraws, normals=_t(normals),
+    )
+    assert set(got) == set(want)
+    for name in ("time_domain_FD", "time_domain_GP", "time_domain_truth"):
+        np.testing.assert_array_equal(got[name], np.asarray(want[name]))
+    for name in ("ddts_finitedifferences", "ddts_GPmean"):
+        np.testing.assert_allclose(got[name], np.asarray(want[name]), rtol=1e-12)
+    truth = np.asarray(want["ddts_truth"])
+    assert truth.shape == (R, 1000)
+    np.testing.assert_allclose(got["ddts_truth"], truth, rtol=0, atol=1e-8 * np.abs(truth).max())
+    std = np.asarray(want["ddts_GPstd"])
+    assert std.shape == (R, MPRIME) and np.all(std.max(axis=1) > 0)
+    rel = np.abs(got["ddts_GPstd"] - std).max(axis=1) / std.max(axis=1)
+    assert np.all(rel < 1e-6), rel
+    # Drawn from a generator instead: the same statistics, other samples.
+    drawn = derivative_comparison_data(
+        model, convert.euler_scaled_basis(j["basis"], device="cpu"),
+        convert.gaussian_processes(j["gps"], device="cpu"),
+        model.initial_conditions(cfg.init_params, device="cpu"), j["t_s"], _t(j["sc"]),
+        j["t_est"], 400, generator=torch.Generator().manual_seed(2),
+    )
+    np.testing.assert_allclose(drawn["ddts_GPstd"].max(axis=1), std.max(axis=1), rtol=0.3)
+
+
+def test_euler_cli_ddtdata_and_chol_weights(monkeypatch, capsys):
+    """``euler ... --ddtdata --weights chol`` through parser and pipeline
+    at the small configuration in place of the default one."""
+    small = EulerConfig(spatial_domain=SPACE, time_domain=TIME,
+                        gp_bounds=GPBounds(*BOUNDS, NRES), reg_grid=GRID)
+    monkeypatch.setattr(pdes, "EulerConfig", lambda: small)
+    argv = ["euler", "0.06", str(M), str(NOISE), str(MPRIME), str(R), "--ndraws", "20",
+            "--device", "cpu", "--ddtdata", "--weights", "chol"]
+    res = cli.run(argv)
+    assert res.gps[0].weight_method == "chol"
+    assert bool(torch.equal(res.gps[0].sqrtW, torch.tril(res.gps[0].sqrtW)))
+    assert np.isfinite(res.regularizer) and int(res.valid.sum()) > 0
+    assert res.ddtdata["ddts_GPstd"].shape == (R, MPRIME)
+    assert res.ddtdata["ddts_truth"].shape == (R, 1000)
+    assert "ddtdata" in res.stage_seconds
+    # The GP derivative means track the truth's derivatives on the span.
+    truth_at_est = np.stack([np.interp(res.t_estimation, res.ddtdata["time_domain_truth"], row)
+                             for row in res.ddtdata["ddts_truth"]])
+    rel = np.linalg.norm(res.ddtdata["ddts_GPmean"] - truth_at_est) / np.linalg.norm(truth_at_est)
+    assert rel < 0.5, rel
+    args = cli.build_parser().parse_args(["euler", "0.06", "200", "0.03", "400", "6"])
+    assert (args.weights, args.ddtdata) == ("auto", False)
+    with pytest.raises(NotImplementedError, match="low-rank"):
+        cli.run(argv[:-1] + ["lowrank"])
+    with pytest.raises(NotImplementedError, match="1024"):
+        run_euler(SPAN, M, NOISE, 1024, R, config=small, weight_method="auto", device="cpu",
+                  verbose=False)
