@@ -36,7 +36,23 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    launches per objective evaluation, that both ensembles are sound and
    that the posterior mean lies near the true parameters; then hold the
    Cholesky weight root against the eigh root on that run's GP problem
-   (the same posterior means, rtol 1e-6).
+   (the same posterior means, rtol 1e-6);
+8. hold kernel A against its plain version at the Euler ex1c screen
+   shape (k = 3200 output times with the error term, phase 3's last case),
+   then run the full ex1c workload (``euler 0.06 200 0.03 3200 6 --ndraws
+   600``: m' = 3200, so the GP weights are the factored low-rank roots)
+   and check that its search went through kernel A, two launches per
+   objective evaluation, and that the ensemble is sound;
+9. run the production-scale pipeline at its defaults (``scaled``: n =
+   6000, 10,000 snapshots, 30 modes, m' = 2048, low-rank roots, 256
+   draws) and check its regularizer, grid, stable share, training error
+   and singular values; no hand-written kernel lies on this path, and the
+   launch counts show it; hold the randomized POD against the exact
+   spectrum, and the low-rank root against the dense eigh root on a
+   handful of the run's modes at m' = 2048;
+10. one smaller windowed run (Euler source, 4 windows, "cAH", a scaled
+    column-norm Tikhonov matrix) so that path touches the card: finite
+    outputs only, no accuracy gate.
 
 The last two lines of standard output are a JSON summary of the kernels
 and a JSON status line.
@@ -55,6 +71,11 @@ import torch
 EX1A = ["euler", "0.06", "200", "0.03", "400", "6", "--ndraws", "600", "--device", "cuda"]
 EX3 = ["heat", "1.0", "20", "0.05", "80", "5", "--ndraws", "600", "--device", "cuda"]
 SEIRD_EX1A = ["seird", "90", "90", "0.10", "360", "--ndraws", "600", "--device", "cuda"]
+EX1C = ["euler", "0.06", "200", "0.03", "3200", "6", "--ndraws", "600", "--device", "cuda"]
+SCALED = ["scaled", "--quiet", "--device", "cuda"]
+SCALED_WINDOWED = ["scaled", "--source", "euler", "--n-space", "600", "--k", "2000", "--modes", "8",
+                   "--gp-samples", "256", "--mprime", "512", "--windows", "4", "--modelform", "cAH",
+                   "--regularization", "gamma", "--quiet", "--device", "cuda"]
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "quadratic_ensemble_screen": ("gp_bayesopinf_torch/csrc/quadratic_screen.cu",
                                   "gp_bayesopinf_tpu/ops/ensemble_pallas.py:177"),
@@ -241,8 +262,9 @@ def kernel_phase():
     # form; r = 6 is the ex1a shape, r = 5 the SEIRD one.
     cases = [(6, 16, 20, 401, 0.15, False, 0), (6, 16, 20, 400, 0.06, True, 0),
              (6, 16, 7, 400, 0.06, True, 0), (6, 16, 20, 400, 0.06, True, 2),
-             (5, 16, 20, 360, 90.0, True, 0), (5, 16, 20, 500, 200.0, False, 0)]
-    seird = {}
+             (5, 16, 20, 360, 90.0, True, 0), (5, 16, 20, 500, 200.0, False, 0),
+             (6, 16, 20, 3200, 0.06, True, 0)]  # the ex1c estimation grid
+    seird, ex1c = {}, None
     for r, G, nd, k, t_max, track, L in cases:
         make = screen_case if r == 6 else seird_screen_case
         a = make(G, nd, k, t_max, rng, track)
@@ -252,9 +274,25 @@ def kernel_phase():
         kw = dict(nd=nd, substeps=8, track_error=track)
         s_k, e_k = es.quadratic_ensemble_screen(*a.values(), **kw)
         torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         s_p, e_p, maxdev = es._plain(*f.values(), nd, 8, track)
+        stop.record()
+        torch.cuda.synchronize()
         err = hold("A", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd, track, L > 0)
         max_err = max(max_err, err)
+        if k == 3200:  # the plain version takes seconds here: timed on this one run
+            ms = cuda_ms(lambda: es.quadratic_ensemble_screen_cuda(*f.values(), **kw), 10)
+            bound, by = bound_ms(quadratic_flops(G * nd, r, k, 8),
+                                 screen_bytes(f.values(), G * nd, G))
+            ex1c = dict(ms=ms, plain_ms=start.elapsed_time(stop), bound_ms=bound, bound_by=by,
+                        max_abs_err=err)
+            print(f"[kernel vs plain] ex1c shape, k=3200 with error: kernel {ms:.3f} ms, plain "
+                  f"{ex1c['plain_ms']:.3f} ms (CUDA events, one run), bound {bound:.4f} ms ({by}); "
+                  f"{1e6 * ms / ((k - 1) * 8 * 4):.1f} ns per right-hand side; flags identical "
+                  f"({int(s_k.sum())}/{s_k.numel()} stable), err_sq max abs diff {err:.3e}",
+                  flush=True)
+            continue
         print(f"[kernel vs plain] r={r} G={G} nd={nd} k={k} track_error={track} L={L or 1}: "
               f"flags identical ({int(s_k.sum())}/{s_k.numel()} stable)", flush=True)
         if r == 5:
@@ -280,7 +318,7 @@ def kernel_phase():
                   f"plain {plain_ms:.3f} ms (CUDA events), bound {bound:.4f} ms "
                   f"({by}); {1e6 * ms / ((k - 1) * 8 * 4):.1f} ns per right-hand side",
                   flush=True)
-    return dict(max_abs_err=max_err, seird=seird, **times)
+    return dict(max_abs_err=max_err, seird=seird, ex1c=ex1c, **times)
 
 
 def cahbn_case(G, nd, k, t_max, rng, track_error):
@@ -516,6 +554,150 @@ def seird_phase():
     return launches
 
 
+def ex1c_phase():
+    """Phase 8; returns the kernel A launches of the run."""
+    from gp_bayesopinf_torch.pipeline import ensemble_error
+
+    res, wall, launches, evals = run_counted(EX1C, "quadratic_ensemble_screen")
+
+    n_valid = int(res.valid.sum())
+    err = ensemble_error(res)
+    print(f"[ex1c] wall {wall:.2f} s; stages (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
+    print(f"[ex1c] weight roots {sorted({g.weight_method for g in res.gps})}, retained ranks "
+          f"{[g.lowrank_root.rank for g in res.gps]} of {res.gps[0].t_estimation.shape[0]}",
+          flush=True)
+    print(f"[ex1c] lambda {res.regularizer:.6e}, valid {n_valid}/600, ensemble-mean error vs "
+          f"compressed truth {err:.4f}, kernel launches {launches} in {evals} objective "
+          "evaluations", flush=True)
+    assert all(g.weight_method == "lowrank" and g.sqrtW is None for g in res.gps)
+    assert launches >= 12, f"only {launches} kernel launches in the ex1c run"
+    assert launches == 2 * evals, f"{launches} launches in {evals} evaluations"
+    assert math.isfinite(res.regularizer) and res.regularizer > 0
+    assert n_valid >= 420, f"only {n_valid}/600 draws valid"
+    assert bool(torch.isfinite(res.draws_compressed[res.valid]).all())
+    assert bool(torch.isfinite(res.draws).all())
+    assert err < 0.5, f"ensemble-mean error {err:.4f}"
+    return launches
+
+
+def scaled_phase():
+    """Phase 9: the scaled run at its defaults, then the POD and the
+    low-rank root held against their dense counterparts on its data."""
+    from gp_bayesopinf_torch.gp.estimates import batched_gp_estimates
+    from gp_bayesopinf_torch.gp.lowrank import batched_lowrank_gp_estimates
+    from gp_bayesopinf_torch.pipeline import cli
+    from gp_bayesopinf_torch.pipeline.scaled import search
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cli.run(SCALED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"[scaled] wall {wall:.2f} s; stages (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
+    print(f"[scaled] weight roots '{res.weight_method}', retained ranks of the 30 roots "
+          f"{res.weight_ranks[0].tolist()} of 2048", flush=True)
+    print("[scaled] grid errors " + ", ".join(
+        f"{lam:.1e}: " + ("rejected" if e >= search.REJECTED else f"{e:.4f}")
+        for lam, e in zip(res.grid, res.grid_errors)), flush=True)
+    print(f"[scaled] regularizer {res.regularizer:.6e}, stable fraction "
+          f"{res.stable_fraction:.4f}, train error {res.train_error:.5f}; hand-written kernel "
+          f"launches on this path {launches} (no TPU kernel lies on it)", flush=True)
+    assert res.weight_method == "lowrank" and res.weight_ranks.shape == (1, 30)
+    assert not any(launches.values()), f"the scaled path launched a screen kernel: {launches}"
+    assert math.isfinite(res.regularizer) and res.regularizer > 0
+    assert bool((res.grid_errors < search.REJECTED).any()), "every grid candidate rejected"
+    assert res.stable_fraction >= 0.7, f"stable fraction {res.stable_fraction:.4f}"
+    # No accuracy gate below the shrinkage floor: at these defaults three of
+    # the 30 POD modes of the synthetic source are noise, the 20-draw screen
+    # rejects every lambda <= 1 in the JAX package too (held to 7 digits on
+    # the CPU, tests/test_torch_scaled.py, the slow test), and the search
+    # lands where the operators shrink towards zero and the error is ~1.
+    # An error of 2 or more would be a diverging ensemble.
+    assert res.train_error < 2.0, f"train error {res.train_error:.5f}"
+    sv = res.svdvals[:30]
+    assert np.isfinite(sv).all() and np.all(np.diff(sv) <= 0), "singular values not descending"
+    assert res.ensemble_mean.shape == (30, 2048) and np.isfinite(res.ensemble_mean).all()
+
+    # The randomized POD at the run's size against the exact spectrum (the
+    # eigenvalues of the float64 Gram matrix). Float32 products: the
+    # singular values that stand above the noise floor to 1e-4 of the
+    # largest; those inside the floor's cluster (three of the 30 here) are
+    # resolved by two power iterations only to ~10% (bound 25%).
+    from gp_bayesopinf_torch.parallel import randomized_pod
+    from gp_bayesopinf_torch.pipeline.scaled.data import synthetic_states
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    states = synthetic_states(6000, 10000, 30, device="cuda", generator=gen)
+    centered = states - states.mean(dim=1, keepdim=True)
+    basis, pod_sv = randomized_pod(centered, 30, generator=gen)
+    c64 = centered.double()
+    exact = torch.sqrt(torch.linalg.eigvalsh(c64 @ c64.T).flip(0)[:30].clamp(min=0.0))
+    signal = exact > 3.0 * exact[-1]
+    pod_err = float((pod_sv[:30] - exact)[signal].abs().max() / exact[0])
+    floor_err = float(((pod_sv[:30] - exact) / exact).abs().max())
+    orth = float((basis.T @ basis - torch.eye(30, device="cuda")).abs().max())
+    print(f"[scaled] randomized POD against the exact spectrum at (6000, 10000): the "
+          f"{int(signal.sum())} singular values above the noise floor within {pod_err:.2e} of "
+          f"the largest, all 30 within {floor_err:.2e} relative, basis orthonormal to "
+          f"{orth:.2e}", flush=True)
+    assert pod_err < 1e-4 and floor_err < 0.25 and orth < 1e-4, (pod_err, floor_err, orth)
+    del states, centered, c64
+
+    # The low-rank root against the dense eigh root at m' = 2048 on four of
+    # the run's modes: W (C + eta I) W = I, and the same weighted Gram
+    # matrix of the "cA" data matrix [1, q]. Both sit on the float64
+    # conditioning floor at eta = 1e-8 (~1e-3), hence the bound 5e-3.
+    dev, f64 = torch.device("cuda"), torch.float64
+    modes = [0, 9, 19, 29]
+    T = torch.as_tensor(res.sample_times, dtype=f64, device=dev).expand(len(modes), -1)
+    Y = torch.as_tensor(res.samples[modes], dtype=f64, device=dev)
+    hyper = [torch.as_tensor(res.hyperparameters[modes, i], dtype=f64, device=dev)
+             for i in range(3)]
+    t_est = torch.linspace(0.0, 1.0, 2048, dtype=f64, device=dev)
+    low = batched_lowrank_gp_estimates(T, Y, t_est, *hyper, eta=1e-8)
+    dense = batched_gp_estimates(T, Y, t_est, *hyper, 1e-8, method="eigh")
+    assert bool(dense.ok.all())
+    eye = torch.eye(2048, dtype=f64, device=dev)
+    for i, mode in enumerate(modes):
+        W = low[i].root.dense()  # (m', m') for this check only
+        resid = float((W @ (dense.ddt_covariance[i] + 1e-8 * eye) @ W - eye).abs().max())
+        D = torch.stack([torch.ones_like(t_est), dense.state_estimate[i]], dim=1)
+        G_low = low[i].root.apply(D).T @ low[i].root.apply(D)
+        G_dense = (dense.weight_root[i] @ D).T @ (dense.weight_root[i] @ D)
+        rel = float(torch.linalg.norm(G_low - G_dense) / torch.linalg.norm(G_dense))
+        print(f"[scaled] mode {mode}: low-rank root of rank {low[i].root.rank} (the run's "
+              f"{res.weight_ranks[0, mode]}) against dense eigh: max |W (C + eta I) W - I| "
+              f"{resid:.3e}, weighted Gram relative difference {rel:.3e}", flush=True)
+        assert resid < 5e-3 and rel < 5e-3, (mode, resid, rel)
+        torch.testing.assert_close(low[i].ddt_estimate, dense.ddt_estimate[i], rtol=1e-8,
+                                   atol=1e-8 * float(dense.ddt_estimate[i].abs().max()))
+    return wall
+
+
+def windowed_phase():
+    """Phase 10: a smoke of the windowed path on the card (no accuracy
+    gate: the sizes are cut far below a deployment's)."""
+    from gp_bayesopinf_torch.pipeline import cli
+
+    t0 = time.perf_counter()
+    res = cli.run(SCALED_WINDOWED)
+    torch.cuda.synchronize()
+    print(f"[scaled, 4 windows] wall {time.perf_counter() - t0:.2f} s; stages (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
+    print(f"[scaled, 4 windows] window regularizers {res.window_regularizers.tolist()}, stable "
+          f"fraction {res.stable_fraction:.4f}, errors: anchored {res.window_error:.4f}, mean "
+          f"handoff {res.chained_error_mean:.4f}, draw-wise {res.chained_error_draws:.4f}",
+          flush=True)
+    assert res.window_regularizers.shape == (4,)
+    assert np.isfinite(res.window_regularizers).all() and (res.window_regularizers > 0).all()
+    assert all(math.isfinite(e) for e in (res.window_error, res.chained_error_mean,
+                                          res.chained_error_draws, res.train_error))
+    assert res.ensemble_mean.shape == (8, 512) and np.isfinite(res.ensemble_mean).all()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -542,18 +724,28 @@ def main() -> int:
     fields["quadratic_ensemble_screen"]["launches"] = pipeline_phase()
     fields["cahbn_ensemble_screen"]["launches"] = heat_phase()
     # Kernel A carries two main paths: its launches are those of both runs.
-    by_path = {"ex1a": fields["quadratic_ensemble_screen"]["launches"], "seird": seird_phase()}
+    by_path = {"ex1a": fields["quadratic_ensemble_screen"]["launches"], "seird": seird_phase(),
+               "ex1c": ex1c_phase()}
     fields["quadratic_ensemble_screen"].update(
         launches=sum(by_path.values()), launches_by_path=by_path)
+    scaled_phase()
+    windowed_phase()
 
+    def entry(name, f, **more):
+        source, replaces = KERNELS[name]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": f["launches"], "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+                "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+                "library_ms": None, **more}
+
+    A, B = fields["quadratic_ensemble_screen"], fields["cahbn_ensemble_screen"]
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": f["launches"], "max_abs_err": f["max_abs_err"], "ms": f["ms"],
-         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
-         "library_ms": None,
-         **{key: f[key] for key in ("launches_by_path", "seird") if key in f}}
-        for name, (source, replaces) in KERNELS.items()
-        for f in [fields[name]]
+        entry("quadratic_ensemble_screen", A, shape="ex1a: G 16, nd 20, r 6, k 400, error term",
+              launches_by_path=by_path, seird=A["seird"]),
+        entry("cahbn_ensemble_screen", B, shape="ex3: G 16, nd 20, r 5, nu 2, k 80, error term"),
+        # The same kernel at the ex1c estimation grid, with that run's launches.
+        entry("quadratic_ensemble_screen", dict(A["ex1c"], launches=by_path["ex1c"]),
+              shape="ex1c: G 16, nd 20, r 6, k 3200, error term"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,5 @@
 """Regularization auto-search: a batched log-grid screen and a bounded
-1-D refinement (counterpart of ``gp_bayesopinf_tpu/bayes/regsearch.py``,
-the kernel objective).
+1-D refinement (counterpart of ``gp_bayesopinf_tpu/bayes/regsearch.py``).
 
 For each candidate lambda on a log grid, draw ``ndraws`` posterior
 operator samples and integrate each over both the prediction and the
@@ -12,15 +11,21 @@ minimization between the best's neighbours then refines it on one
 frozen set of draws; if it fails, the search falls back to the grid
 best or raises, as the caller chooses.
 
-Every candidate's integrations go through an ensemble-screen kernel: the
-RK4 screen (``ops.ensemble_screen``) for an autonomous "cAH" ROM, the
-implicit SDIRK2 screen (``ops.cahbn_screen``) for a "cAHBN" dirk2 ROM
-with per-trajectory inputs. Each takes its Hopper kernel for CUDA tensors
-and its plain PyTorch version for CPU tensors. A parametric truth model
-whose right-hand side is itself quadratic (SEIRD) takes the same RK4
-screen through a ``KernelScreenSpec`` and an ``operator_map`` from
-parameter draws to operator rows. The generic per-trajectory objective
-and the device-mesh grid wait for later slices.
+Where the ROM allows, every candidate's integrations go through an
+ensemble-screen kernel: the RK4 screen (``ops.ensemble_screen``) for an
+autonomous "cAH" ROM, the implicit SDIRK2 screen (``ops.cahbn_screen``)
+for a "cAHBN" dirk2 ROM with per-trajectory inputs. Each takes its Hopper
+kernel for CUDA tensors and its plain PyTorch version for CPU tensors. A
+parametric truth model whose right-hand side is itself quadratic (SEIRD)
+takes the same RK4 screen through a ``KernelScreenSpec`` and an
+``operator_map`` from parameter draws to operator rows.
+
+Any other ROM form ("cA", "cAHBN" with rk4, ...), and any ROM under
+``use_kernel=False``, takes the generic objective: ``rom.predict`` on the
+candidates' draws, all candidates of a chunk in one batched integration,
+with the integrators' 1e18 clip in place of the kernels' 1e6. The JAX
+package spreads that batch over a device mesh (``_mesh_sharded_grid``);
+on one card it is the same call.
 """
 
 import logging
@@ -32,6 +37,7 @@ import torch
 
 from ..ops.cahbn_screen import cahbn_ensemble_screen, input_stage_times
 from ..ops.ensemble_screen import quadratic_ensemble_screen
+from ..solve.ivp import stability_mask
 from ..solve.lstsq import WeightedLSTSQ
 
 MAXOPTVAL = 1e12  # objective ceiling of a rejected candidate
@@ -117,6 +123,47 @@ def _kernel_objective(
     return objective
 
 
+def _generic_objective(
+    lstsq: WeightedLSTSQ, rom, initial_conditions, t_pred, t_est, snapshots_est,
+    ndraws: int, input_funcs: Optional[Sequence[Callable]], screen_dtype=None,
+):
+    """Batched objective through ``rom.predict``, any ROM form: (lams (C,),
+    xi (C, ndraws, r, d)) -> (C,) float64 objective values on the host.
+
+    ``screen_dtype`` runs the integrations in reduced precision: they only
+    gate stability and rank candidates, and the chosen lambda's posterior
+    is rebuilt at full precision afterwards.
+    """
+    L = snapshots_est.shape[0]
+    shifts = torch.mean(snapshots_est, dim=2)  # (L, r)
+    limits = 5.0 * torch.amax(torch.abs(snapshots_est - shifts[:, :, None]), dim=2)
+    norms = torch.sqrt(torch.sum(snapshots_est**2, dim=(1, 2)))  # (L,)
+    cast = (lambda x: x.to(screen_dtype)) if screen_dtype else (lambda x: x)
+    t_pred, t_est, q0s = cast(t_pred), cast(t_est), cast(initial_conditions)
+    shifts, limits, snaps, norms = cast(shifts), cast(limits), cast(snapshots_est), cast(norms)
+    funcs = input_funcs if input_funcs is not None else [None] * L
+
+    def objective(lams: torch.Tensor, xi: torch.Tensor) -> np.ndarray:
+        stable = lstsq.posterior_spd(lams)  # (C,)
+        ohats = cast(lstsq.sample(lams, xi=xi))  # (C, ndraws, r, d)
+        total = 0.0
+        for ell in range(L):
+            sol_pred = rom.predict(ohats, q0s[ell], t_pred, input_func=funcs[ell])
+            sol_est = rom.predict(ohats, q0s[ell], t_est, input_func=funcs[ell])
+            ok = stability_mask(sol_pred, shifts[ell], limits[ell]) & stability_mask(
+                sol_est, shifts[ell], limits[ell]
+            )  # (C, ndraws)
+            stable = stable & ok.all(dim=1)
+            mean_sol = torch.mean(sol_est, dim=1)  # (C, r, m')
+            miss = torch.sqrt(torch.sum((mean_sol - snaps[ell]) ** 2, dim=(1, 2)))
+            total = total + miss / norms[ell]
+        err = (total / L).to(torch.float64)
+        err = torch.where(torch.isfinite(err), err, MAXOPTVAL)
+        return torch.where(stable, err, MAXOPTVAL).cpu().numpy()
+
+    return objective
+
+
 def auto_regularize(
     lstsq: WeightedLSTSQ,
     rom,
@@ -133,16 +180,19 @@ def auto_regularize(
     input_funcs: Optional[Sequence[Callable]] = None,
     refine_failure: str = "fallback",
     operator_map: Optional[Callable] = None,
+    use_kernel: Optional[bool] = None,
+    screen_dtype: Optional[torch.dtype] = None,
 ) -> RegSearchResult:
     """Select the regularization hyperparameter lambda.
 
     Parameters
     ----------
     lstsq : the weighted regression's factorization.
-    rom : an autonomous "cAH" ``GalerkinROM``, or a "cAHBN" one with
-        ``ivp_method="dirk2"`` together with ``input_funcs``; its
-        ``substeps`` set the screen's step. Or a ``KernelScreenSpec``
-        together with ``operator_map``.
+    rom : a ``GalerkinROM``. An autonomous "cAH" one, or a "cAHBN" one
+        with ``ivp_method="dirk2"`` together with ``input_funcs``, is
+        screened by its kernel; its ``substeps`` set the screen's step.
+        Any other form goes through ``rom.predict``. Or a
+        ``KernelScreenSpec`` together with ``operator_map``.
     initial_conditions : (L, r) or (r,) initial states, one per trajectory.
     t_pred, t_est : prediction and estimation time grids.
     snapshots_est : (L, r, m') or (r, m') GP state estimates.
@@ -163,20 +213,28 @@ def auto_regularize(
         regression draws (N, rows, cols) to (N, r, d) "cAH" operator rows
         (``SEIRD2.cah_operators``); the draws' r and d above are then the
         regression's rows and columns.
+    use_kernel : None screens through a kernel wherever the ROM is
+        eligible; False takes the generic objective (``rom.predict``)
+        even then; True raises where the ROM is not eligible.
+    screen_dtype : for the generic objective, the precision of the
+        screen's integrations (default: the factorization's).
     """
     if refine_failure not in ("fallback", "raise"):
         raise ValueError("refine_failure must be 'fallback' or 'raise'")
-    autonomous = rom.structure == "cAH" and rom.input_dimension == 0
-    with_inputs = (
-        rom.structure == "cAHBN" and input_funcs is not None
-        and rom.ivp_method == "dirk2"
+    if set("BN") & set(rom.structure) and input_funcs is None:
+        raise ValueError(f"a '{rom.structure}' ROM has inputs: pass input_funcs")
+    eligible = (rom.structure == "cAH" and rom.input_dimension == 0) or (
+        rom.structure == "cAHBN" and rom.ivp_method == "dirk2"
     )
-    if not (autonomous or with_inputs):
+    if use_kernel is None:
+        use_kernel = eligible
+    elif use_kernel and not eligible:
         raise ValueError(
-            "the screen needs an autonomous 'cAH' ROM or a 'cAHBN' dirk2 ROM "
-            f"with input_funcs, got '{rom.structure}' ({rom.ivp_method}, "
-            f"input_funcs {'given' if input_funcs is not None else 'None'})"
+            "use_kernel requires an autonomous 'cAH' ROM or a 'cAHBN' dirk2 ROM "
+            f"with input_funcs, got '{rom.structure}' ({rom.ivp_method})"
         )
+    if not use_kernel and not hasattr(rom, "predict"):
+        raise ValueError("the generic objective integrates through rom.predict: pass a GalerkinROM")
     if isinstance(rom, KernelScreenSpec) and operator_map is None:
         # Without the map, parameter-row draws would be reshaped into
         # operator rows of the wrong width.
@@ -190,10 +248,16 @@ def auto_regularize(
         snapshots_est = snapshots_est[None]
     dev, dtype = lstsq.S.device, lstsq.S.dtype
     shape = (ndraws, lstsq.num_problems, lstsq.num_unknowns)
-    objective = _kernel_objective(
-        lstsq, rom, initial_conditions, t_pred, t_est, snapshots_est, ndraws,
-        input_funcs, operator_map,
-    )
+    if use_kernel:
+        objective = _kernel_objective(
+            lstsq, rom, initial_conditions, t_pred, t_est, snapshots_est, ndraws,
+            input_funcs, operator_map,
+        )
+    else:
+        objective = _generic_objective(
+            lstsq, rom, initial_conditions, t_pred, t_est, snapshots_est, ndraws,
+            input_funcs, screen_dtype,
+        )
 
     G = len(grid)
     if G == 1:

@@ -19,9 +19,10 @@ from .bayes.posterior import OperatorPosterior
 from .gp.estimates import GPEstimates
 from .gp.fit import FitResult
 from .gp.gp import GaussianProcess
+from .gp.lowrank import LowRankWeightRoot
 from .models.seird import SEIRD, SEIRD2
 from .rom.basis import EulerScaledBasis, QuadraticLiftedBasis
-from .solve.lstsq import WeightedLSTSQ
+from .solve.lstsq import MatrixTikhonovLSTSQ, TikhonovLSTSQ, WeightedLSTSQ
 from .utils.device import DeviceLike
 
 
@@ -42,9 +43,14 @@ def gp_estimates(est, *, device: DeviceLike) -> GPEstimates:
     return GPEstimates(*_fields(est, GPEstimates._fields, device))
 
 
+def lowrank_root(root, *, device: DeviceLike) -> LowRankWeightRoot:
+    """A JAX-package ``LowRankWeightRoot`` (NumPy fields) to the port's."""
+    Q, gain, lam = _fields(root, ("Q", "gain", "lam"), device)
+    return LowRankWeightRoot(Q, gain, lam, float(root.eta), float(root.resid))
+
+
 def gaussian_processes(gps, *, device: DeviceLike) -> List[GaussianProcess]:
-    """JAX ``GaussianProcess`` objects (a dense weight root, "eigh" or
-    "chol") to the port's."""
+    """JAX ``GaussianProcess`` objects (any weight root) to the port's."""
     out = []
     for gp in gps:
         arrays = {
@@ -57,6 +63,9 @@ def gaussian_processes(gps, *, device: DeviceLike) -> List[GaussianProcess]:
             length_scale=float(gp.length_scale),
             noise_level=float(gp.noise_level),
             weight_method=gp.weight_method,
+            lowrank_root=(
+                None if gp.lowrank_root is None else lowrank_root(gp.lowrank_root, device=device)
+            ),
             **arrays,
         ))
     return out
@@ -78,6 +87,14 @@ def quadratic_lifted_basis(basis, *, device: DeviceLike) -> QuadraticLiftedBasis
 
 def weighted_lstsq(fac, *, device: DeviceLike) -> WeightedLSTSQ:
     return WeightedLSTSQ(*_fields(fac, WeightedLSTSQ._fields, device))
+
+
+def tikhonov_lstsq(tik, *, device: DeviceLike) -> TikhonovLSTSQ:
+    return TikhonovLSTSQ(*_fields(tik, TikhonovLSTSQ._fields, device))
+
+
+def matrix_tikhonov_lstsq(mt, *, device: DeviceLike) -> MatrixTikhonovLSTSQ:
+    return MatrixTikhonovLSTSQ(*_fields(mt, MatrixTikhonovLSTSQ._fields, device))
 
 
 def operator_posterior(post, *, device: DeviceLike) -> OperatorPosterior:

@@ -30,7 +30,7 @@ import torch
 
 from .configs import SEIRDConfig
 from ..bayes import BayesianODE, KernelScreenSpec, OperatorPosterior, auto_regularize
-from ..gp import fit_gaussian_processes
+from ..gp import fit_gaussian_processes, regression_weights
 from ..models import SEIRD2
 from ..solve import weighted_lstsq_fit
 from ..utils import ODE_STAGES, TimedBlock, host_rng, resolve_device, stage_generators
@@ -174,11 +174,12 @@ def run_seird(
 
     with stage("regression", "constructing posterior hyperparameters\n"):
         state_est = torch.stack([gp.state_estimate for gp in gps])  # (5, m')
+        roots, are_cholesky = regression_weights([gps])  # (1, 5, m', m'), or factored
         fac = weighted_lstsq_fit(
             model.data_matrix_blocks(state_est),  # (5, m', 4)
-            torch.stack([gp.sqrtW for gp in gps])[None],  # (1, 5, m', m')
+            roots,
             torch.stack([gp.ddt_estimate for gp in gps])[None],  # (1, 5, m')
-            weights_are_cholesky=(gps[0].weight_method == "chol"),
+            weights_are_cholesky=are_cholesky,
         )
         # The right-hand side is exactly quadratic, so parameter draws map
         # to "cAH" operator rows and the search runs on the screen kernel.
@@ -293,7 +294,8 @@ def _crosscheck(gps, t_est, eta, verbose=True) -> Dict[str, float]:
         for name, ref in (("state_estimate", state), ("ddt_estimate", ddt)):
             dev = float(np.max(np.abs(getattr(gp, name).cpu().numpy() - ref)))
             worst[name] = max(worst[name], dev)
-        root = gp.sqrtW.cpu().numpy()
+        dense = gp.lowrank_root.dense() if gp.weight_method == "lowrank" else gp.sqrtW
+        root = dense.cpu().numpy()
         if gp.weight_method == "chol":
             W = np.linalg.inv(root @ root.T)
         else:

@@ -23,7 +23,7 @@ import torch
 
 from .configs import EulerConfig
 from ..bayes import BayesianROM, OperatorPosterior, auto_regularize
-from ..gp import fit_gaussian_processes
+from ..gp import fit_gaussian_processes, regression_weights
 from ..models import Euler
 from ..rom import EulerScaledBasis, GalerkinROM
 from ..solve import weighted_lstsq_fit
@@ -73,10 +73,11 @@ def run_euler(
 
     The arguments are the JAX package's (flagship ex1a is
     ``(0.0, 0.06), 200, 0.03, 400, 6``) plus ``device``.
-    ``weight_method`` picks the dense GP weight root, "eigh" or "chol"
-    (``gp.gp.resolve_weight_method``; the low-rank root is not ported and
-    raises NotImplementedError). ``ddtdata`` fills the result's
-    ``ddtdata`` (``derivative_comparison_data``).
+    ``weight_method`` picks the GP weight root, "eigh", "chol" or the
+    factored "lowrank"; None and "auto" take "lowrank" from m' = 1024 on
+    (``gp.gp.resolve_weight_method``), so ex1c and ex2c (m' = 3200) run
+    factored. ``ddtdata`` fills the result's ``ddtdata``
+    (``derivative_comparison_data``).
     """
     dev = resolve_device(device)
     f64 = torch.float64
@@ -141,10 +142,10 @@ def run_euler(
         state_est = torch.stack([gp.state_estimate for gp in gps])
         D = rom.data_matrix(state_est)[None]  # (1, m', d)
         rhs = torch.stack([gp.ddt_estimate for gp in gps])[:, None]  # (r, 1, m')
-        sqrtW = torch.stack([gp.sqrtW for gp in gps])[:, None]
-        fac = weighted_lstsq_fit(
-            D, sqrtW, rhs, weights_are_cholesky=(gps[0].weight_method == "chol")
-        )
+        # Dense roots (r, 1, m', m'), or factored ones applied as thin
+        # products without an (m', m') matrix.
+        roots, are_cholesky = regression_weights([[gp] for gp in gps])
+        fac = weighted_lstsq_fit(D, roots, rhs, weights_are_cholesky=are_cholesky)
         res = auto_regularize(
             fac, rom, state_est[:, 0], t_pred_t, t_est_t, state_est,
             generator=gens["search"], grid=config.reg_grid, ndraws=20,
@@ -213,7 +214,11 @@ def derivative_comparison_data(
     (r, ndraws, m'), come from ``generator`` unless given as ``normals``.
     """
     means = torch.stack([gp.ddt_estimate for gp in gps])  # (r, m')
-    covs = torch.stack([gp.ddt_covariance for gp in gps])
+    # A factored root gives its covariance back from the retained eigenpairs.
+    covs = torch.stack([
+        gp.lowrank_root.covariance() if gp.ddt_covariance is None else gp.ddt_covariance
+        for gp in gps
+    ])
     # The covariance is only positive semi-definite, with eigenvalues that
     # come out negative at roundoff: factor by eigh with a clamped spectrum.
     w, V = torch.linalg.eigh(0.5 * (covs + covs.transpose(-1, -2)))

@@ -27,7 +27,7 @@ import torch
 
 from .configs import HeatMultiConfig
 from ..bayes import BayesianROM, OperatorPosterior, auto_regularize
-from ..gp import fit_gaussian_processes
+from ..gp import fit_gaussian_processes, regression_weights
 from ..models import CubicHeatBimodal, HeatBimodal, solve_host_stacked
 from ..rom import GalerkinROM, QuadraticLiftedBasis
 from ..solve import weighted_lstsq_fit
@@ -90,6 +90,7 @@ def run_heat_multi(
     ndraws: int = 100,
     config: Optional[HeatMultiConfig] = None,
     generalization_test: bool = True,
+    weight_method: Optional[str] = None,
     verbose: bool = True,
     *,
     device: DeviceLike,
@@ -97,9 +98,9 @@ def run_heat_multi(
     """Run the multi-trajectory experiment start to finish on ``device``.
 
     The arguments are the JAX package's (flagship ex3 is
-    ``(0.0, 1.0), 20, 0.05, 80, 5``) plus ``device``. Only the dense
-    symmetric GP weight root is ported (the low-rank one, which the JAX
-    package takes at m' >= 1024, comes later).
+    ``(0.0, 1.0), 20, 0.05, 80, 5``) plus ``device`` and
+    ``weight_method`` (``gp.gp.resolve_weight_method``: the factored
+    low-rank root from m' = 1024 on).
     """
     dev = resolve_device(device)
     f64 = torch.float64
@@ -157,6 +158,7 @@ def run_heat_multi(
             n_restarts_optimizer=bounds.n_restarts,
             gp_regularizer=gp_regularizer,
             generator=gens["fit"],
+            weight_method=weight_method,
         )
         gps = [gps_flat[ell * r : (ell + 1) * r] for ell in range(L)]
 
@@ -172,8 +174,8 @@ def run_heat_multi(
         ])  # (L, m', d)
         by_mode = [[gps[ell][i] for ell in range(L)] for i in range(r)]
         rhs = torch.stack([torch.stack([g.ddt_estimate for g in m]) for m in by_mode])
-        sqrtW = torch.stack([torch.stack([g.sqrtW for g in m]) for m in by_mode])
-        fac = weighted_lstsq_fit(D_blocks, sqrtW, rhs)  # (r, L, m', m') roots
+        roots, are_cholesky = regression_weights(by_mode)  # (r, L, m', m'), or factored
+        fac = weighted_lstsq_fit(D_blocks, roots, rhs, weights_are_cholesky=are_cholesky)
         res = auto_regularize(
             fac, rom, state_ests[:, :, 0], t_pred_t, t_est_t, state_ests,
             generator=gens["search"], grid=config.reg_grid, ndraws=20,

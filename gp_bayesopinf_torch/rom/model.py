@@ -13,7 +13,7 @@ import torch
 
 from .operators import assemble_data_matrix, rom_rhs, rom_rhs_jacobian, total_dim
 from ..ops.cahbn_screen import input_stage_times
-from ..solve.ivp import dirk2_solve, rk4_solve
+from ..solve.ivp import dirk2_solve, rk4_solve, rk4_stage_times
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,16 +63,20 @@ class GalerkinROM:
         ``input_func(times)`` maps a (n,) tensor of times to (m, n) inputs,
         or to (..., m, n) whose leading axes broadcast against the batch
         (one input history per trajectory). It is called once, on every
-        time the dirk2 integrator touches (``input_stage_times``), for the
-        whole batch; the rk4 path takes no inputs.
+        time the integrator touches (``input_stage_times`` for dirk2,
+        ``rk4_stage_times`` for rk4), for the whole batch.
         """
         S = self.structure
         q0 = q0.expand(Ohat.shape[:-1])
         if self.ivp_method == "rk4":
-            if input_func is not None:
-                raise NotImplementedError("rk4 with inputs is not ported; use dirk2")
+            if input_func is None:
+                return rk4_solve(
+                    lambda t, q: rom_rhs(Ohat, q, None, S), q0, t_eval, substeps=self.substeps
+                )
+            u = input_func(rk4_stage_times(t_eval, self.substeps)).movedim(-1, 0)
             return rk4_solve(
-                lambda t, q: rom_rhs(Ohat, q, None, S), q0, t_eval, substeps=self.substeps
+                lambda j, q: rom_rhs(Ohat, q, u[j], S), q0, t_eval,
+                substeps=self.substeps, stage_index=True,
             )
         u = [None] * (3 * (t_eval.shape[0] - 1) * self.substeps)
         if input_func is not None:

@@ -29,11 +29,23 @@ CLAMP = 1e18
 GAMMA = 1.0 - 0.5 * 2.0**0.5  # SDIRK2 (Alexander) stage coefficient
 
 
+def rk4_stage_times(t_eval: torch.Tensor, substeps: int) -> torch.Tensor:
+    """The (3 (k - 1) substeps,) times ``rk4_solve`` touches: for every
+    step its start, its midpoint and its end, in the integrator's own
+    arithmetic. An input function is tabulated on them once for a whole
+    integration (``rk4_solve(..., stage_index=True)``)."""
+    h = ((t_eval[1:] - t_eval[:-1]) / substeps)[:, None]
+    s = torch.arange(substeps, dtype=t_eval.dtype, device=t_eval.device)
+    t0 = t_eval[:-1, None] + s * h
+    return torch.stack([t0, t0 + 0.5 * h, t0 + h], dim=-1).reshape(-1)
+
+
 def rk4_solve(
     rhs: Callable,
     q0: torch.Tensor,
     t_eval: torch.Tensor,
     substeps: int = 8,
+    stage_index: bool = False,
 ) -> torch.Tensor:
     """Integrate dq/dt = rhs(t, q) with classical RK4.
 
@@ -44,6 +56,8 @@ def rk4_solve(
         (for example posterior draws).
     t_eval : (k,) output times, possibly non-uniform.
     substeps : RK4 steps per output interval.
+    stage_index : call ``rhs(j, q)`` with the index j of the stage's time
+        in ``rk4_stage_times(t_eval, substeps)`` in place of the time.
 
     Returns
     -------
@@ -55,11 +69,16 @@ def rk4_solve(
     out = [q0]
     for i, h in enumerate(hs):
         for s in range(substeps):
-            t = ts[i] + s * h
-            k1 = rhs(t, q)
-            k2 = rhs(t + 0.5 * h, q + 0.5 * h * k1)
-            k3 = rhs(t + 0.5 * h, q + 0.5 * h * k2)
-            k4 = rhs(t + h, q + h * k3)
+            if stage_index:
+                j = 3 * (i * substeps + s)
+                a, b, c = j, j + 1, j + 2
+            else:
+                t = ts[i] + s * h
+                a, b, c = t, t + 0.5 * h, t + h
+            k1 = rhs(a, q)
+            k2 = rhs(b, q + 0.5 * h * k1)
+            k3 = rhs(b, q + 0.5 * h * k2)
+            k4 = rhs(c, q + h * k3)
             q = torch.clamp(
                 q + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4), -CLAMP, CLAMP
             )

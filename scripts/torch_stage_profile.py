@@ -4,16 +4,22 @@ flagship runs on one CUDA card.
     python3 scripts/torch_stage_profile.py heat [--seeds 29012024 1 2] [--profile] [--ladder]
     python3 scripts/torch_stage_profile.py euler [--seeds 27092023] [--profile]
     python3 scripts/torch_stage_profile.py seird [--seeds 21092023 1 2] [--profile]
+    python3 scripts/torch_stage_profile.py ex1c [--seeds 27092023] [--profile]
+    python3 scripts/torch_stage_profile.py scaled [--seeds 0 1 2] [--profile]
 
 Builds the screen kernels first, so no run pays for nvcc. Then, for each
 seed, runs the flagship workload (heat ex3: ``1.0 20 0.05 80 5``, euler
-ex1a: ``0.06 200 0.03 400 6``, seird ex1a: ``90 90 0.10 360``; 600 draws)
-on ``cuda`` and prints one JSON
+ex1a: ``0.06 200 0.03 400 6``, seird ex1a: ``90 90 0.10 360``, euler ex1c:
+``0.06 200 0.03 3200 6`` with the low-rank weight roots; 600 draws; or
+``scaled`` at its defaults: n 6000, 10,000 snapshots, 30 modes, m' 2048,
+256 draws) on ``cuda`` and prints one JSON
 line: the card (name, power limit), the seed, the stage wall seconds, the
 chosen lambda, the valid draws, the screen-kernel launches and the
 relative ensemble-mean errors against the compressed truth (heat: also
 against the full-state truth, the reference's own metric; seird: against
-the truth, with the posterior mean beside the true parameters). With
+the truth, with the posterior mean beside the true parameters; scaled:
+the regularizer, the stable share, the training error, the grid errors
+and the roots' ranks instead). With
 ``--profile`` the first seed is run once more under ``torch.profiler``,
 and its line adds, for each stage, the device operations (kernels and
 copies) launched in it, the time the device was busy with them and its
@@ -50,6 +56,7 @@ from gp_bayesopinf_torch.pipeline import (  # noqa: E402
     ensemble_errors,
     run_euler,
     run_heat_multi,
+    run_scaled,
     run_seird,
 )
 from gp_bayesopinf_torch.pipeline import odes, pdes_multi  # noqa: E402
@@ -58,6 +65,8 @@ WORKLOADS = {
     "heat": (run_heat_multi, HeatMultiConfig, ((0.0, 1.0), 20, 0.05, 80, 5)),
     "euler": (run_euler, EulerConfig, ((0.0, 0.06), 200, 0.03, 400, 6)),
     "seird": (run_seird, SEIRDConfig, ((0.0, 90.0), 90, 0.10, 360)),
+    "ex1c": (run_euler, EulerConfig, ((0.0, 0.06), 200, 0.03, 3200, 6)),
+    "scaled": (run_scaled, None, ()),  # its defaults; the seed is an argument
 }
 
 
@@ -131,7 +140,10 @@ def heat_ladder(seed, lams):
 def run_once(name, seed, profile=False):
     runner, config_cls, args = WORKLOADS[name]
     ensemble_screen.launches = cahbn_screen.launches = 0
-    kw = dict(config=config_cls(seed=seed), ndraws=600, device="cuda", verbose=False)
+    if name == "scaled":
+        kw = dict(seed=seed, device="cuda", verbose=False)
+    else:
+        kw = dict(config=config_cls(seed=seed), ndraws=600, device="cuda", verbose=False)
     t0 = time.perf_counter()
     if profile:
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -147,7 +159,11 @@ def run_once(name, seed, profile=False):
         "launches": {"quadratic_ensemble_screen": ensemble_screen.launches,
                      "cahbn_ensemble_screen": cahbn_screen.launches},
     }
-    if name == "heat":
+    if name == "scaled":
+        line.update(stable_fraction=res.stable_fraction, train_error=res.train_error,
+                    grid_errors=res.grid_errors.tolist(), weight_method=res.weight_method,
+                    ranks=res.weight_ranks.tolist())
+    elif name == "heat":
         errs, err_new = ensemble_errors(res)
         full, full_new = ensemble_errors(res, full_state=True)
         line.update(valid=res.valid.sum(dim=1).tolist(),
@@ -160,7 +176,8 @@ def run_once(name, seed, profile=False):
                     posterior_mean=res.bayesian_model.mean.tolist(),
                     true_parameters=list(res.model.parameters))
     else:
-        line.update(valid=int(res.valid.sum()), err_compressed=ensemble_error(res))
+        line.update(valid=int(res.valid.sum()), err_compressed=ensemble_error(res),
+                    ranks=[g.lowrank_root.rank for g in res.gps if g.lowrank_root is not None])
     if profile:
         dev = stage_device_time(prof, set(res.stage_seconds))
         line["device"] = {
@@ -185,7 +202,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     for kernel in ("quadratic_screen", "cahbn_screen"):
         build(kernel)
-    seeds = args.seeds or [WORKLOADS[args.workload][1]().seed]
+    config_cls = WORKLOADS[args.workload][1]
+    seeds = args.seeds or [0 if config_cls is None else config_cls().seed]
     for seed in seeds:
         run_once(args.workload, seed)
     if args.profile:

@@ -157,8 +157,8 @@ def test_resolve_weight_method(given, points, want):
 
 
 @pytest.mark.parametrize("given,points,error", [
-    ("auto", 1024, NotImplementedError), (None, 3200, NotImplementedError),
-    ("lowrank", 400, NotImplementedError), ("svd", 400, ValueError),
+    ("svd", 400, ValueError), ("LOWRANK", 3200, ValueError),
+    ("cholesky", 1024, ValueError), ("dense", 400, ValueError),
 ])
 def test_resolve_weight_method_refuses(given, points, error):
     with pytest.raises(error):

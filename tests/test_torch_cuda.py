@@ -1,6 +1,7 @@
 """The CUDA ensemble-screen kernels (A: RK4 "cAH", B: SDIRK2 "cAHBN")
-against their plain PyTorch versions, on the card. Every test here needs a
-CUDA device and skips without one.
+against their plain PyTorch versions, and the low-rank weight root against
+the dense one at m' = 2048, on the card. Every test here needs a CUDA
+device and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed:
 
@@ -83,6 +84,74 @@ def test_kernel_matches_plain_on_seird_operators(cuda, k, t_max, track):
         torch.testing.assert_close(e_k[:-1], e_p[:-1], rtol=1e-3, atol=0.0)
     else:
         assert bool((e_k == 0).all())
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_at_k_3200(cuda):
+    """Kernel A on the Euler ex1c estimation grid: k = 3200 output times
+    with the error term (eight times the terms of k = 400 in every
+    per-warp sum), 16 candidates of 20 draws, r = 6, 8 substeps."""
+    rng = np.random.default_rng(17)
+    r, G, nd, k = 6, 16, 20, 3200
+    d = 1 + r + r * (r + 1) // 2
+    Ohat = 0.3 * rng.standard_normal((G * nd, r, d))
+    Ohat[:, :, 1 : 1 + r] -= 20.0 * np.eye(r)
+    Ohat[:, :, 1 + r :] *= 0.1
+    Ohat[-nd:, :, 1 : 1 + r] += 420.0 * np.eye(r)  # the last candidate hits the clip
+    arrays = (Ohat, 0.5 * rng.standard_normal(r), np.linspace(0, 0.06, k), np.zeros(r),
+              np.full(r, 10.0), 0.2 * rng.standard_normal((r, k)))
+    args = [torch.as_tensor(a, device=cuda) for a in arrays]
+    before = es.launches
+    s_k, e_k = es.quadratic_ensemble_screen(*args, nd=nd, substeps=8)
+    torch.cuda.synchronize()
+    assert es.launches == before + 1
+    s_p, e_p = es.quadratic_ensemble_screen_torch(*args, nd=nd, substeps=8)
+    assert torch.equal(s_k, s_p)
+    assert bool(s_k[:-nd].all()) and not bool(s_k[-nd:].any())
+    torch.testing.assert_close(e_k[:-1], e_p[:-1], rtol=1e-3, atol=0.0)
+
+
+@pytest.mark.gpu
+def test_lowrank_root_matches_dense_at_2048_points(cuda):
+    """The factored root against the dense eigh root on the card at m' =
+    2048 (three modes, 128 samples): W (C + eta I) W = I and the weighted
+    Gram matrix, both to 5e-3 (the float64 conditioning floor at eta =
+    1e-8 is ~1e-3); the estimates to 1e-8 of their scale; ranks far below
+    m'; the three-mode batch equal to each mode alone (same rank)."""
+    from gp_bayesopinf_torch.gp.estimates import batched_gp_estimates
+    from gp_bayesopinf_torch.gp.lowrank import (
+        batched_lowrank_gp_estimates, lowrank_gp_estimates,
+    )
+
+    rng = np.random.default_rng(19)
+    f64, m, mp = torch.float64, 128, 2048
+    t = np.sort(rng.uniform(0, 1, m))
+    Y = np.stack([np.sin(9 * t), np.cos(21 * t), np.sin(40 * t) * np.exp(-t)])
+    Y = Y + 1e-3 * rng.standard_normal(Y.shape)
+    T = torch.as_tensor(t, device=cuda).expand(3, m)
+    Yt = torch.as_tensor(Y, device=cuda)
+    t_est = torch.linspace(0, 1, mp, dtype=f64, device=cuda)
+    hyper = [torch.tensor(v, dtype=f64, device=cuda)
+             for v in ([1.0, 1.5, 0.8], [0.15, 0.06, 0.03], [1e-6, 1e-6, 1e-6])]
+    low = batched_lowrank_gp_estimates(T, Yt, t_est, *hyper, eta=1e-8)
+    dense = batched_gp_estimates(T, Yt, t_est, *hyper, 1e-8, method="eigh")
+    eye = torch.eye(mp, dtype=f64, device=cuda)
+    for i, est in enumerate(low):
+        assert 0 < est.root.rank < mp // 4
+        W = est.root.dense()
+        assert float((W @ (dense.ddt_covariance[i] + 1e-8 * eye) @ W - eye).abs().max()) < 5e-3
+        D = torch.stack([torch.ones_like(t_est), dense.state_estimate[i]], dim=1)
+        G_low = est.root.apply(D).T @ est.root.apply(D)
+        G_dense = (dense.weight_root[i] @ D).T @ (dense.weight_root[i] @ D)
+        assert float(torch.linalg.norm(G_low - G_dense) / torch.linalg.norm(G_dense)) < 5e-3
+        scale = float(dense.ddt_estimate[i].abs().max())
+        torch.testing.assert_close(est.ddt_estimate, dense.ddt_estimate[i], rtol=0,
+                                   atol=1e-8 * scale)
+        alone = lowrank_gp_estimates(T[i], Yt[i], t_est, *(h[i] for h in hyper), eta=1e-8,
+                                     refine=False, tol_factor=1e-2)
+        batch = batched_lowrank_gp_estimates(T, Yt, t_est, *hyper, eta=1e-8, refine=False,
+                                             tol_factor=1e-2)[i]
+        assert alone.root.rank == batch.root.rank
 
 
 @pytest.mark.gpu

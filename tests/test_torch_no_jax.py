@@ -2,8 +2,10 @@
 module of ``gp_bayesopinf_torch`` and running a forward call through the
 GP, the regression, both screens, a cAHBN ROM integration with inputs and
 a SEIRD search and ensemble leaves ``jax`` out of ``sys.modules``; the
-SEIRD part runs with ``jax`` and ``gp_bayesopinf_tpu`` blocked from
-import."""
+SEIRD part, the low-rank Euler route, the Tikhonov regularizers, the
+tall-matrix factorizations, ``run_scaled``, the ``scaled`` command line
+and a named workload run with ``jax`` and ``gp_bayesopinf_tpu`` blocked
+from import."""
 
 import os
 import subprocess
@@ -83,6 +85,34 @@ draws, valid = ode.solution_posterior(torch.tensor(cfg.initial_conditions, dtype
                                       generator=gen)
 assert draws.shape == (6, 5, 31) and bool(valid.any())
 assert model.cah_operators(ode.rvs(5, generator=gen)[:, None, :]).shape == (5, 5, 21)
+
+# The large-m' and production-scale modules.
+from gp_bayesopinf_torch import convert, parallel
+from gp_bayesopinf_torch.gp import lowrank_gp_estimates
+from gp_bayesopinf_torch.pipeline import EulerConfig, cli, experiments, run_scaled
+from gp_bayesopinf_torch.pipeline.scaled import data, estimate, gamma, rollout, run, search
+from gp_bayesopinf_torch.solve import MatrixTikhonovLSTSQ, TikhonovLSTSQ
+
+est = lowrank_gp_estimates(t, Y[0], t_est, 1.0, 0.3, 1e-4)
+assert est.root.apply(torch.ones(12, dtype=torch.float64)).shape == (12,)
+tik = fac.tikhonov()
+assert tik.sample(0.1, 3, generator=gen).shape == (3, 2, fac.num_unknowns)
+assert bool(fac.matrix_tikhonov(torch.eye(fac.num_unknowns, dtype=torch.float64)).posterior_spd(0.1))
+X = torch.randn((40, 12), generator=gen, dtype=torch.float64)
+assert parallel.tall_skinny_svd(X)[1].shape == (12,)
+assert parallel.randomized_pod(X, 3, oversample=4, generator=gen)[0].shape == (40, 3)
+small = EulerConfig(spatial_domain=np.linspace(0, 2, 25)[:-1], time_domain=np.linspace(0, 0.08, 21),
+                    gp_bounds=GPBounds((1e-5, 1e5), (1e-5, 1e2), (1e-16, 1e2), 4),
+                    reg_grid=np.logspace(-6, 2, 3))
+experiments.EULER_WORKLOADS["tiny"] = (0.06, 20, 0.01, 30, 2)
+res = experiments.run_workload("euler", "tiny", ndraws=6, config=small, weight_method="lowrank",
+                               verbose=False, device="cpu")
+assert all(g.weight_method == "lowrank" for g in res.gps) and res.regularizer > 0
+tiny = ["scaled", "--n-space", "48", "--k", "80", "--modes", "2", "--gp-samples", "30", "--mprime",
+        "32", "--restarts", "2", "--ndraws", "4", "--grid-size", "4", "--device", "cpu", "--quiet"]
+out = cli.run(tiny + ["--windows", "2", "--weights", "lowrank"])
+assert out.window_regularizers.shape == (2,) and out.weight_ranks.shape == (2, 2)
+assert cli.main(tiny + ["--modelform", "cAH", "--regularization", "blocked"]) == 0
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "gp_bayesopinf_tpu") for m in sys.modules)
 print("ok")
 """
@@ -91,6 +121,6 @@ print("ok")
 def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")

@@ -295,8 +295,75 @@ def test_euler_cli_ddtdata_and_chol_weights(monkeypatch, capsys):
     assert rel < 0.5, rel
     args = cli.build_parser().parse_args(["euler", "0.06", "200", "0.03", "400", "6"])
     assert (args.weights, args.ddtdata) == ("auto", False)
-    with pytest.raises(NotImplementedError, match="low-rank"):
-        cli.run(argv[:-1] + ["lowrank"])
-    with pytest.raises(NotImplementedError, match="1024"):
-        run_euler(SPAN, M, NOISE, 1024, R, config=small, weight_method="auto", device="cpu",
-                  verbose=False)
+    # The factored root through the same command line: no dense weight.
+    low = cli.run(argv[:-1] + ["lowrank"])
+    assert all(g.weight_method == "lowrank" and g.sqrtW is None for g in low.gps)
+    assert np.isfinite(low.regularizer) and int(low.valid.sum()) > 0
+    assert low.ddtdata["ddts_GPstd"].shape == (R, MPRIME)
+    np.testing.assert_allclose(low.ddtdata["ddts_GPmean"], res.ddtdata["ddts_GPmean"], rtol=1e-8)
+
+
+def test_lowrank_route_matches_jax(jax_run):
+    """The ex1c route (factored weight roots) at the small size: JAX's
+    ``weight_method="lowrank"`` GPs carried across, the factored
+    regression against JAX's (singular values to 1e-8 of the largest,
+    posterior mean rtol 1e-6), and the search on JAX's factorization and
+    replayed draws making JAX's decisions."""
+    j = jax_run
+    cfg, keys = j["cfg"], j["keys"]
+    jgps = j_fit_gps(j["t_est"], j["t_s"], j["sc"], *BOUNDS, n_restarts_optimizer=NRES,
+                     key=keys["fit"], weight_method="lowrank")
+    jrom = JROM("cAH", state_dimension=R, substeps=cfg.rom_substeps)
+    jst = jnp.stack([g.state_estimate for g in jgps])
+    jrhs = jnp.stack([g.ddt_estimate for g in jgps])[:, None]
+    jfac = j_lstsq_fit(jrom.data_matrix(jst)[None], [g.lowrank_root for g in jgps], jrhs)
+    jres = j_auto_regularize(
+        jfac, [lambda O, q, t: jrom.predict(O, q, t)], jst[:, 0][None], TIME, j["t_est"],
+        jst[None], keys["search"], grid=GRID, ndraws=ND, verbose=False, rom=jrom,
+        use_kernel=True,
+    )
+
+    gps = convert.gaussian_processes(jgps, device="cpu")
+    assert all(g.weight_method == "lowrank" and g.sqrtW is None for g in gps)
+    rom = GalerkinROM("cAH", state_dimension=R, substeps=cfg.rom_substeps)
+    st = torch.stack([g.state_estimate for g in gps])
+    roots, are_cholesky = pdes.regression_weights([[g] for g in gps])
+    fac = weighted_lstsq_fit(rom.data_matrix(st)[None], roots,
+                             torch.stack([g.ddt_estimate for g in gps])[:, None],
+                             weights_are_cholesky=are_cholesky)
+    np.testing.assert_allclose(fac.S.numpy(), np.asarray(jfac.S), rtol=0,
+                               atol=1e-8 * float(np.max(jfac.S)))
+    np.testing.assert_allclose(fac.solve(1e-2).numpy(), np.asarray(jfac.solve(1e-2)), rtol=1e-6)
+
+    carried = convert.weighted_lstsq(jfac, device="cpu")
+    d = carried.num_unknowns
+    xi_grid = np.stack([np.asarray(jax.random.normal(k, (ND, R, d)))
+                        for k in jax.random.split(keys["search"], GRID.size)])
+    xi_refine = np.asarray(jax.random.normal(jax.random.fold_in(keys["search"], 0x5EED),
+                                             (ND, R, d)))
+    res = auto_regularize(carried, rom, st[:, 0], _t(TIME), _t(j["t_est"]), st, grid=GRID,
+                          ndraws=ND, verbose=False, xi_grid=_t(xi_grid), xi_refine=_t(xi_refine))
+    rejected = jres.grid_errors >= MAXOPTVAL
+    np.testing.assert_array_equal(res.grid_errors >= MAXOPTVAL, rejected)
+    np.testing.assert_allclose(res.grid_errors[~rejected], jres.grid_errors[~rejected], rtol=1e-3)
+    assert res.grid_best == jres.grid_best
+    np.testing.assert_allclose(res.regularizer, jres.regularizer, rtol=1e-2)
+
+
+def test_run_euler_lowrank_end_to_end(jax_run):
+    """``run_euler`` with the factored root, asked for and by "auto" above
+    a lowered threshold (``tests/test_torch_lowrank.py``): sound
+    ensembles from factored roots only."""
+    cfg = EulerConfig(spatial_domain=SPACE, time_domain=TIME,
+                      gp_bounds=GPBounds(*BOUNDS, NRES), reg_grid=GRID)
+    res = run_euler(SPAN, M, NOISE, MPRIME, R, ndraws=NDRAWS, config=cfg, device="cpu",
+                    verbose=False, weight_method="lowrank")
+    assert all(g.weight_method == "lowrank" for g in res.gps)
+    assert all(0 < g.lowrank_root.rank <= MPRIME for g in res.gps)  # the cap (34) may be hit
+    assert np.isfinite(res.regularizer) and res.regularizer > 0 and int(res.valid.sum()) > 0
+    assert ensemble_error(res) <= 2.0 * jax_run["err"]
+    # The same fit as the dense route's (the fit stage does not see the
+    # weight method), the regression through the factored roots.
+    for low, jgp in zip(res.gps, jax_run["gps"]):
+        assert low.ddt_covariance is None and low.state_estimate.shape == (MPRIME,)
+        assert np.isfinite(low.length_scale) and jgp.weight_method != "lowrank"
