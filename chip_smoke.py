@@ -52,7 +52,20 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    handful of the run's modes at m' = 2048;
 10. one smaller windowed run (Euler source, 4 windows, "cAH", a scaled
     column-norm Tikhonov matrix) so that path touches the card: finite
-    outputs only, no accuracy gate.
+    outputs only, no accuracy gate;
+11. the resident server: ``python3 -m gp_bayesopinf_torch.pipeline.cli
+    serve`` as a fresh process in ``build/chip_smoke/serve`` answers
+    ``warmup seird``, the SEIRD ex1a run as plain text, as JSON, with
+    ``--exportto`` and with ``--profile``, four bad lines and ``quit``;
+    every SEIRD answer must print phase 7's regularizer and stable count
+    and launch kernel A as often (its ack's launch count), the export must
+    hold the posterior (or fail naming ``h5py`` where it is missing), and
+    the profiled request's trace must hold the stage ranges and that many
+    kernel A launches; the acks' walls are the process's first run
+    (warmup) against its warm runs;
+12. the checkpoint: ``scaled`` at its defaults with a fresh
+    ``--checkpoint-dir``, then again with it: the same result to the bit,
+    and no data, POD or GP-fit stage in the second run.
 
 The last two lines of standard output are a JSON summary of the kernels
 and a JSON status line.
@@ -60,10 +73,14 @@ and a JSON status line.
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -551,7 +568,7 @@ def seird_phase():
     rel = float(((means["chol"] - means["eigh"]) / means["eigh"]).abs().max())
     print(f"[seird] Cholesky against eigh weight root: posterior means differ by {rel:.2e} "
           "relative at most", flush=True)
-    return launches
+    return launches, res
 
 
 def ex1c_phase():
@@ -698,6 +715,151 @@ def windowed_phase():
     assert res.ensemble_mean.shape == (8, 512) and np.isfinite(res.ensemble_mean).all()
 
 
+def trace_names(path):
+    """(names of the kernel events, set of the user ranges' names) of a
+    Chrome trace by ``profile_trace``. The trace of a SEIRD run is ~1 GB:
+    its events are found by a scan of the text, in the layout that the
+    profiler writes ("cat" before "name"), and read with ``json`` only if
+    the scan finds no kernel."""
+    import re
+
+    text = Path(path).read_bytes()
+
+    def names(cat):
+        pattern = rb'"cat"\s*:\s*"' + cat + rb'"\s*,\s*"name"\s*:\s*"((?:[^"\\]|\\.)*)"'
+        return [m.decode() for m in re.findall(pattern, text)]
+
+    kernels, ranges = names(rb"kernel"), set(names(rb"user_annotation"))
+    if not kernels:
+        events = json.loads(text)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    return kernels, ranges
+
+
+def serve_phase(seird_res, seird_launches):
+    """Phase 11: the resident server in a fresh process. ``seird_res`` and
+    ``seird_launches`` are phase 7's result and kernel A launches, which
+    every SEIRD answer must repeat. Returns kernel A's launches in the
+    session, from the acks."""
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke" / "serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    export, prof = work / "seird", work / "prof"
+    seird = " ".join(SEIRD_EX1A)
+    requests = [
+        "warmup seird --ndraws 600", seird, json.dumps({"argv": SEIRD_EX1A}),
+        f"{seird} --exportto {export} --nolog", f"{seird} --profile {prof} --nolog",
+        "42", '{"x": 1}', "euler 0.06", "serve",
+    ]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gp_bayesopinf_torch.pipeline.cli", "serve"], cwd=work, env=env,
+        input="\n".join(requests + ["quit"]) + "\n", capture_output=True, text=True, timeout=900,
+    )
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, f"serve exited {proc.returncode}:\n{proc.stderr[-4000:]}"
+    segments, acks, lines = [], [], []
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"serve"'):
+            acks.append(json.loads(line)["serve"])
+            segments.append(lines)
+            lines = []
+        else:
+            lines.append(line)
+    assert len(acks) == len(requests), f"{len(acks)} acks for {len(requests)} requests"
+    for req, ack in zip(requests, acks):
+        assert {"rc", "wall_s", "argv", "launches"} <= set(ack), ack
+        print(f"[serve] {req[:60]!r}: rc {ack['rc']}, wall {ack['wall_s']:.3f} s, kernel A "
+              f"launches {ack['launches']['quadratic_ensemble_screen']}"
+              + (f", error {ack['error'][:120]!r}" if "error" in ack else ""), flush=True)
+
+    try:
+        import h5py  # noqa: F401
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+    want = [0, 0, 0, 0 if have_h5py else 1, 0, 2, 2, 2, 2]
+    assert [a["rc"] for a in acks] == want, [a["rc"] for a in acks]
+    assert all(a["argv"] is None for a in acks[5:7]) and acks[8]["argv"] == ["serve"]
+    lam, n_valid = f"{seird_res.regularizer:.6e}", int(seird_res.valid.sum())
+    for i in (1, 2, 3, 4) if have_h5py else (1, 2, 4):  # the SEIRD runs
+        out = "\n".join(segments[i])
+        assert f"chosen regularizer: {lam}" in out, f"request {i}: {out[-2000:]}"
+        assert f"stable draws: {n_valid}/600" in out, f"request {i}: {out[-2000:]}"
+    counts = [a["launches"]["quadratic_ensemble_screen"] for a in acks]
+    # Without h5py the export request fails before its run.
+    assert counts[:5] == [seird_launches] * 3 + [seird_launches if have_h5py else 0,
+                                                 seird_launches], counts
+    assert not any(a["launches"]["cahbn_ensemble_screen"] for a in acks)
+    print(f"[serve] every SEIRD answer: lambda {lam}, {n_valid}/600 stable, {seird_launches} "
+          "kernel A launches, as phase 7", flush=True)
+
+    if have_h5py:
+        import h5py
+
+        with h5py.File(f"{export}_posterior.h5", "r") as hf:
+            mean, cov = hf["mean"][:], hf["cov"][:]
+        np.testing.assert_allclose(mean, seird_res.bayesian_model.mean.cpu().numpy(), rtol=1e-10)
+        np.testing.assert_allclose(cov, seird_res.bayesian_model.cov.cpu().numpy(), rtol=1e-10)
+        assert os.path.isfile(f"{export}_data.h5")
+        print("[serve] h5py present: the export holds phase 7's posterior (rtol 1e-10)",
+              flush=True)
+    else:
+        assert "h5py" in acks[3]["error"], acks[3]
+        print("[serve] h5py missing: the export request failed with rc 1 naming h5py",
+              flush=True)
+
+    traces = sorted(prof.glob("*.json"))
+    assert len(traces) == 1, traces
+    t1 = time.perf_counter()
+    kernels, ranges = trace_names(traces[0])
+    screens = sum("quadratic_screen_kernel" in name for name in kernels)
+    stages = ("data", "gp_fit", "regression", "ensemble", "newic")
+    print(f"[serve] profile trace {traces[0].name}: {os.path.getsize(traces[0]) / 1e6:.1f} MB, "
+          f"{len(kernels)} kernels, {screens} kernel A; read in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    assert set(stages) <= ranges, f"stage ranges missing: {set(stages) - ranges}"
+    assert screens == seird_launches, f"{screens} kernel A events in the trace"
+    shutil.rmtree(prof)  # ~1 GB
+    first, warm = acks[0]["wall_s"], [a["wall_s"] for a in acks[1:5]]
+    print(f"[serve] process wall {wall:.2f} s; first run (warmup) {first:.3f} s; warm runs "
+          f"{warm[0]:.3f}, {warm[1]:.3f} s; with --exportto {warm[2]:.3f} s; with --profile "
+          f"{warm[3]:.3f} s", flush=True)
+    return sum(counts)
+
+
+def checkpoint_phase():
+    """Phase 12: ``scaled`` at its defaults twice with one fresh
+    checkpoint directory; the second run resumes."""
+    from gp_bayesopinf_torch.pipeline import cli
+
+    ckpt = tempfile.mkdtemp(prefix="scaled-ckpt-", dir=Path(__file__).resolve().parent / "build")
+    runs, walls = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(cli.run(SCALED + ["--checkpoint-dir", ckpt]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    first, second = runs
+    for res, wall in zip(runs, walls):
+        print(f"[checkpoint] wall {wall:.2f} s; stages (s): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
+    front = {"data", "pod", "gp_fit"}
+    assert front <= set(first.stage_seconds) and not front & set(second.stage_seconds)
+    assert second.regularizer == first.regularizer and second.train_error == first.train_error
+    np.testing.assert_array_equal(second.grid_errors, first.grid_errors)
+    np.testing.assert_array_equal(second.ensemble_mean, first.ensemble_mean)
+    print(f"[checkpoint] resumed run equal to the bit: regularizer {second.regularizer:.6e}, "
+          f"train error {second.train_error:.5f}, grid errors and ensemble mean "
+          f"({second.ensemble_mean.shape}) identical; walls {walls[0]:.2f} -> {walls[1]:.2f} s",
+          flush=True)
+    shutil.rmtree(ckpt)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -710,7 +872,7 @@ def main() -> int:
     print(sys.version.split()[0], torch.__version__, torch.version.cuda, flush=True)
 
     names = ("quadratic_screen", "cahbn_screen")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         infos = dict(zip(names, pool.map(build, names)))
     print(f"[build] both in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -720,16 +882,29 @@ def main() -> int:
             if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    fields = {"quadratic_ensemble_screen": kernel_phase(), "cahbn_ensemble_screen": cahbn_phase()}
-    fields["quadratic_ensemble_screen"]["launches"] = pipeline_phase()
-    fields["cahbn_ensemble_screen"]["launches"] = heat_phase()
-    # Kernel A carries two main paths: its launches are those of both runs.
-    by_path = {"ex1a": fields["quadratic_ensemble_screen"]["launches"], "seird": seird_phase(),
-               "ex1c": ex1c_phase()}
+    def phase(label, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase] {label}: {time.perf_counter() - t1:.1f} s", flush=True)
+        return out
+
+    fields = {"quadratic_ensemble_screen": phase("kernel A", kernel_phase),
+              "cahbn_ensemble_screen": phase("kernel B", cahbn_phase)}
+    fields["quadratic_ensemble_screen"]["launches"] = phase("ex1a", pipeline_phase)
+    fields["cahbn_ensemble_screen"]["launches"] = phase("ex3", heat_phase)
+    # Kernel A carries several main paths: its launches are those of all runs.
+    seird_launches, seird_res = phase("seird", seird_phase)
+    by_path = {"ex1a": fields["quadratic_ensemble_screen"]["launches"], "seird": seird_launches,
+               "ex1c": phase("ex1c", ex1c_phase)}
+    phase("scaled", scaled_phase)
+    phase("scaled, 4 windows", windowed_phase)
+    by_path["serve"] = phase("serve", serve_phase, seird_res, seird_launches)
+    del seird_res
+    phase("checkpoint", checkpoint_phase)
     fields["quadratic_ensemble_screen"].update(
         launches=sum(by_path.values()), launches_by_path=by_path)
-    scaled_phase()
-    windowed_phase()
+
+    print(f"[total] {time.perf_counter() - t_start:.1f} s after the card check", flush=True)
 
     def entry(name, f, **more):
         source, replaces = KERNELS[name]

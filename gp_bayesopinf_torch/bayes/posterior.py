@@ -78,6 +78,42 @@ class BayesianROM:
     posterior: OperatorPosterior
     regularizer: Optional[float] = None
 
+    @property
+    def ndims(self) -> int:
+        return self.model.state_dimension
+
+    @property
+    def means(self) -> torch.Tensor:
+        return self.posterior.means
+
+    @property
+    def covs(self) -> torch.Tensor:
+        return self.posterior.covariances()
+
+    def rvs(
+        self,
+        ndraws: Optional[int] = 1,
+        generator: Optional[torch.Generator] = None,
+        xi: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Operator draws (ndraws, r, d); the standard normals ``xi``,
+        (ndraws, r, d), come from ``generator`` unless given."""
+        return self.posterior.sample(ndraws, generator, xi)
+
+    def predict(
+        self,
+        initial_conditions: torch.Tensor,
+        timepoints: torch.Tensor,
+        input_func: Optional[Callable] = None,
+        generator: Optional[torch.Generator] = None,
+        xi: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """One posterior draw integrated through the ROM, (r, k);
+        ``xi`` (1, r, d) as in ``rvs``, ``input_func`` as in
+        ``GalerkinROM.predict``."""
+        ohat = self.rvs(1, generator, xi)[0]
+        return self.model.predict(ohat, initial_conditions, timepoints, input_func)
+
     def solution_posterior(
         self,
         initial_conditions: torch.Tensor,

@@ -17,6 +17,7 @@ from .estimates import batched_gp_estimates, gp_predict
 from .fit import fit_gp_hyperparameters
 from .lowrank import LowRankWeightRoot, batched_lowrank_gp_estimates
 from .nlml import BoxTransform
+from ..ops.rbf import rbf
 from ..utils.device import DeviceLike
 
 # From this many estimation points on "auto" switches to the factored
@@ -70,12 +71,59 @@ class GaussianProcess:
             ]
         )
 
+    @property
+    def nsamples(self) -> int:
+        return int(self.t_training.shape[0])
+
     def predict(self, t: torch.Tensor):
         """Posterior mean and standard deviation at times ``t``."""
         return gp_predict(
             self.t_training, self.y, t,
             self.constant, self.length_scale, self.noise_level,
         )
+
+    def prediction_bounds(self, t: torch.Tensor, kind: str = "95%"):
+        """(lower, mean, upper) at times ``t``, the bounds ``width`` standard
+        deviations off the mean: "std" 1, "95%" 1.96, "2std" 2, "3std" 3."""
+        mean, std = self.predict(t)
+        width = {"std": 1.0, "95%": 1.96, "2std": 2.0, "3std": 3.0}.get(kind)
+        if width is None:
+            raise ValueError(kind)
+        return mean - width * std, mean, mean + width * std
+
+    def __call__(self, t: torch.Tensor, tprime: torch.Tensor) -> torch.Tensor:
+        """The kernel k(t, t') with the white-noise term where t == t'."""
+        K = rbf(t, tprime, self.constant, self.length_scale)
+        same = t[:, None] == tprime[None, :]
+        return K + self.noise_level * same.to(K.dtype)
+
+    def rbf_eval(self, t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
+        """The squared-exponential part of the kernel at (t1, t2)."""
+        return rbf(t1, t2, self.constant, self.length_scale)
+
+    def compute_lstsq_matrices(self, t_est: torch.Tensor, eta: float = 1e-8, method: str = "eigh"):
+        """Compute the state and derivative estimates, the derivative
+        covariance and the weight root (``method`` "eigh" or "chol") at the
+        estimation times ``t_est``, on the device of the training data; the
+        GP keeps them and is returned. Raises ValueError if the weight
+        covariance is not positive definite."""
+        est = batched_gp_estimates(
+            self.t_training[None], self.y[None], t_est,
+            torch.tensor([self.constant], dtype=self.y.dtype, device=self.y.device),
+            torch.tensor([self.length_scale], dtype=self.y.dtype, device=self.y.device),
+            torch.tensor([self.noise_level], dtype=self.y.dtype, device=self.y.device),
+            eta, method=method,
+        )
+        if not bool(est.ok[0]):
+            raise ValueError("inverse covariance not positive definite, increase eta")
+        self.weight_method = method
+        self.t_estimation = t_est
+        self.state_estimate = est.state_estimate[0]
+        self.ddt_estimate = est.ddt_estimate[0]
+        self.ddt_covariance = est.ddt_covariance[0]
+        self.sqrtW = est.weight_root[0]
+        self.lowrank_root = None
+        return self
 
     _EST_FIELDS = ("t_estimation", "state_estimate", "ddt_estimate", "ddt_covariance", "sqrtW")
 

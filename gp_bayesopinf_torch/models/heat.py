@@ -8,10 +8,13 @@ and animation are left out).
             + b sin(4 pi t) / (1 + 100 (x - 3/4)^2)
 
 Second-order finite differences in space; the stiff system is integrated
-on the host with the SDIRK2 of ``solve.ivp.dirk2_solve_np``, whose Newton
-systems are tridiagonal and go to LAPACK ``dgtsv``. The JAX package runs
-these truth solves on the host too, on every backend; PyTorch has no
-tridiagonal solver, and a device solve is later work (ROADMAP).
+by SDIRK2, whose Newton systems are tridiagonal: ``solve_host`` on the
+host with ``solve.ivp.dirk2_solve_np`` and LAPACK ``dgtsv`` (the
+pipeline's truth solves, which the JAX package also runs on the host), and
+``solve`` on the device of its initial condition with
+``solve.ivp.dirk2_solve`` and the batched Thomas algorithm
+``solve.ivp.thomas_solve``. The operators (``stiffness``, ``constant``,
+``input_matrix``) are host NumPy constants.
 """
 
 import dataclasses
@@ -22,7 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..solve.ivp import dirk2_solve_np
+from ..ops.cahbn_screen import input_stage_times
+from ..solve.ivp import dirk2_solve, dirk2_solve_np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +71,24 @@ class HeatBimodal:
         )
         return dx2inv, c, B
 
+    @property
+    def stiffness(self) -> np.ndarray:
+        """Dense (N, N) diffusion operator (for inspection; the solvers
+        touch only its three diagonals)."""
+        dx2inv = self._ops[0]
+        off = np.full(self.N - 1, dx2inv)
+        return np.diag(off, -1) + np.diag(np.full(self.N, -2.0 * dx2inv)) + np.diag(off, 1)
+
+    @property
+    def constant(self) -> np.ndarray:
+        """(N,) boundary constant vector."""
+        return self._ops[1]
+
+    @property
+    def input_matrix(self) -> np.ndarray:
+        """(N, 2) forcing input matrix."""
+        return self._ops[2]
+
     # -- forcing -----------------------------------------------------------------
     @staticmethod
     def oscillators(t: torch.Tensor, a, b) -> torch.Tensor:
@@ -109,10 +131,23 @@ class HeatBimodal:
         du[-1] = 0.0
         return dl, np.full(self.N, -2.0 * dx2inv), du
 
-    def jacobian_tridiag(self, t: float, q: np.ndarray):
-        """(dl, diag, du) of the state Jacobian, gtsv layout."""
+    def jacobian_tridiag(self, t, q):
+        """(dl, diag, du) of the state Jacobian, gtsv layout: NumPy arrays
+        for a NumPy state, tensors on the state's device for a (..., N)
+        tensor."""
         dl, d_base, du = self._bands
+        if isinstance(q, torch.Tensor):
+            dl, d_base, du = (torch.as_tensor(x, dtype=q.dtype, device=q.device)
+                              for x in (dl, d_base, du))
         return dl, d_base + self.reaction_jac_diag(q), du
+
+    def jacobian(self, t, q):
+        """Dense (N, N) state Jacobian, of the kind of ``q`` (NumPy array
+        or tensor); the solvers use ``jacobian_tridiag``."""
+        dl, d, du = self.jacobian_tridiag(t, q)
+        if isinstance(q, torch.Tensor):
+            return torch.diag(dl[1:], -1) + torch.diag(d) + torch.diag(du[:-1], 1)
+        return np.diag(dl[1:], -1) + np.diag(d) + np.diag(du[:-1], 1)
 
     @staticmethod
     def reaction(Q):
@@ -123,8 +158,13 @@ class HeatBimodal:
     def reaction_jac_diag(Q):
         return 0.0
 
-    def _interior(self, initial_conditions) -> np.ndarray:
-        q0 = np.asarray(initial_conditions, np.float64)
+    def _interior(self, initial_conditions):
+        """The interior part of an initial condition given on the interior
+        or the full grid (then checked against the boundary values); a
+        tensor stays a tensor, anything else becomes a float64 array."""
+        q0 = initial_conditions
+        if not isinstance(q0, torch.Tensor):
+            q0 = np.asarray(q0, np.float64)
         if q0.shape[0] == self.N + 2:
             bl, br = float(q0[0]), float(q0[-1])
             if abs(bl - self.left_bc) > 1e-8 or abs(br - self.right_bc) > 1e-8:
@@ -154,6 +194,39 @@ class HeatBimodal:
         k = t_eval.size
         return np.concatenate(
             [np.full((1, k), self.left_bc), sol, np.full((1, k), self.right_bc)]
+        )
+
+    def solve(self, initial_conditions: torch.Tensor, timepoints) -> torch.Tensor:
+        """Integrate on the device of ``initial_conditions`` (the interior
+        (N,) or the full grid (N+2,), whose boundary values must then match
+        the Dirichlet values); returns (N+2, k) states including the
+        boundary rows, in the initial condition's dtype.
+
+        SDIRK2 with ``substeps`` steps an output interval and six Newton
+        steps a stage, each a batched Thomas solve; the forcing is
+        tabulated once at every stage time.
+        """
+        q0 = self._interior(initial_conditions)
+        like = dict(dtype=q0.dtype, device=q0.device)
+        t_eval = torch.as_tensor(timepoints, **like)
+        dx2inv, c, B = self._ops
+        c, B = torch.as_tensor(c, **like), torch.as_tensor(B, **like)
+        forcing = (B @ self.oscillators(input_stage_times(t_eval, self.substeps),
+                                        self.a, self.b)).T  # (stage times, N)
+
+        def rhs(j, q):
+            lap = torch.nn.functional.pad(q[..., 1:], (0, 1)) - 2.0 * q
+            lap = lap + torch.nn.functional.pad(q[..., :-1], (1, 0))
+            return c + dx2inv * lap + forcing[j] + self.reaction(q)
+
+        sol = dirk2_solve(
+            rhs, q0, t_eval, substeps=self.substeps,
+            jac_tridiag=lambda j, q: self.jacobian_tridiag(None, q),
+        )
+        k = t_eval.shape[0]
+        return torch.cat(
+            [torch.full((1, k), self.left_bc, **like), sol,
+             torch.full((1, k), self.right_bc, **like)]
         )
 
     # -- noise -------------------------------------------------------------------

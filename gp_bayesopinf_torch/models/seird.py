@@ -19,10 +19,12 @@ States are (..., 5) tensors and parameters (..., 4) or (..., 6) tensors;
 leading axes are a batch of parameter draws, integrated as one batch. The
 truncated-normal noise model keeps states in [0, 1] and exact zeros
 exactly zero; it and the truth solves of the pipeline's data stage run on
-the host in NumPy, as the reference runs them.
+the host in NumPy, as the reference runs them (``noise_host``,
+``solve_host``), and on the device too (``noise``, ``solve``).
 """
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -145,6 +147,30 @@ class SEIRD2:
             self._rhs_np(parameters), initial_conditions, timepoints,
             substeps=self.substeps,
         )
+
+    def noise(
+        self,
+        states: torch.Tensor,
+        noise_level: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        u: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Truncated-normal noise on the device of ``states``: the model of
+        ``noise_host``, drawn by the same CDF inversion in float64, so the
+        uniforms ``u`` (shaped like ``states``; from ``generator`` unless
+        given) give the host twin's numbers."""
+        if not noise_level:
+            return states
+        x = states.to(torch.float64)
+        if u is None:
+            u = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        iszero = x.abs() < 5e-16
+        std = torch.where(iszero, 1e-3, (noise_level * x).abs())
+        a = torch.clamp(-x / std, max=0.0)
+        b = torch.clamp((1.0 - x) / std, min=0.0)
+        cdf_a = torch.special.ndtr(a)
+        z = torch.special.ndtri(cdf_a + u.to(x) * (torch.special.ndtr(b) - cdf_a))
+        return torch.where(iszero, 0.0, x + std * z).to(states.dtype)
 
     def noise_host(self, rng: np.random.Generator, states, noise_level: float = 0.0):
         """Truncated-normal noise on host states, drawn from the NumPy

@@ -1,33 +1,55 @@
 """Command-line interface (counterpart of
-``gp_bayesopinf_tpu/pipeline/cli.py``: the seird, euler, heat and scaled
-subcommands)::
+``gp_bayesopinf_tpu/pipeline/cli.py``), installed as ``gpboi-torch``::
 
-    python -m gp_bayesopinf_torch.pipeline.cli seird T_MAX NUM_SAMPLES NOISE \\
-        NUM_PTS [--ndraws N] [--gpreg ETA] [--crosscheck] [--device DEVICE]
-    python -m gp_bayesopinf_torch.pipeline.cli euler T_MAX NUM_SAMPLES NOISE \\
-        NUM_PTS NUM_MODES [--ndraws N] [--gpreg ETA] [--weights ROOT] \\
-        [--ddtdata] [--device DEVICE]
-    python -m gp_bayesopinf_torch.pipeline.cli heat T_MAX NUM_SAMPLES NOISE \\
-        NUM_PTS NUM_MODES [--ndraws N] [--gpreg ETA] [--device DEVICE]
-    python -m gp_bayesopinf_torch.pipeline.cli scaled [--source euler] \\
-        [--windows W] [--regularization blocked] [--weights lowrank] ... \\
-        [--device DEVICE]
+    gpboi-torch seird T_MAX NUM_SAMPLES NOISE NUM_PTS [--ndraws N] [--gpreg ETA] \\
+        [--crosscheck] [--exportto PREFIX] [--profile LOGDIR] [--nolog] [--device DEVICE]
+    gpboi-torch euler T_MAX NUM_SAMPLES NOISE NUM_PTS NUM_MODES [--weights ROOT] \\
+        [--ddtdata] ... (the flags of seird but --crosscheck)
+    gpboi-torch heat T_MAX NUM_SAMPLES NOISE NUM_PTS NUM_MODES ...
+    gpboi-torch scaled [--source euler] [--windows W] [--regularization blocked] \\
+        [--weights lowrank] [--checkpoint-dir DIR] ... [--device DEVICE]
+    gpboi-torch serve
+    gpboi-torch warmup [seird euler heat] [--ndraws N] [--device DEVICE]
 
-``scaled`` is the production-scale pipeline (``pipeline.scaled.run_scaled``;
-its defaults are n = 6000, 10,000 snapshots, 30 modes, m' = 2048) and
-prints a JSON summary line. The paper's runs are ``seird 90 90 0.10 360``
-(ODE ex1a), ``euler 0.06 200 0.03 400 6`` (ex1a; ex1c with 3200 points) and
-``heat 1.0 20 0.05 80 5`` (ex3), each with ``--ndraws 600``. ``--device`` defaults to ``cuda`` and does not fall back
-to the CPU.
+(or ``python -m gp_bayesopinf_torch.pipeline.cli ...``). ``scaled`` is the
+production-scale pipeline (``pipeline.scaled.run_scaled``; its defaults
+are n = 6000, 10,000 snapshots, 30 modes, m' = 2048) and prints a JSON
+summary line. The paper's runs are ``seird 90 90 0.10 360`` (ODE ex1a),
+``euler 0.06 200 0.03 400 6`` (ex1a; ex1c with 3200 points) and ``heat 1.0
+20 0.05 80 5`` (ex3), each with ``--ndraws 600``. ``--device`` defaults to
+``cuda`` and does not fall back to the CPU.
+
+A ``seird``, ``euler`` or ``heat`` run keeps the reference's records
+unless ``--nolog``: ``log.log`` in the working directory, a dated folder
+``figures/<monthday>/<H-M-S>`` with ``report.txt`` (for ``seird`` with the
+posterior summary). ``--exportto PREFIX`` writes the HDF5 files of
+``io.hdf5.export_result`` (needs ``h5py``); ``--profile LOGDIR`` records a
+``torch.profiler`` trace of the run (``utils.timing.profile_trace``);
+``--noopen`` is accepted and does nothing, as in the reference.
+
+``run(argv)`` returns a run's result object; ``main(argv)`` keeps the
+records, prints and returns 0 (the console script's exit code).
 """
 
 import argparse
 import sys
 
+#: The workload that ``warmup`` runs for each pipeline.
+FLAGSHIP = {"seird": "ex1a", "euler": "ex1a", "heat": "ex3"}
+
+
+def _add_records(sub):
+    sub.add_argument("--exportto", metavar="PREFIX", help="HDF5 export prefix (needs h5py)")
+    sub.add_argument("--noopen", action="store_true", help="do not open figures (no effect)")
+    sub.add_argument("--profile", metavar="LOGDIR",
+                     help="record a torch.profiler trace of the run into LOGDIR")
+    sub.add_argument("--nolog", action="store_true",
+                     help="skip the log.log / figures folder / report.txt records")
+
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        prog="python -m gp_bayesopinf_torch.pipeline.cli",
+        prog="gpboi-torch",
         description="GP-BayesOpInf experiment pipelines (PyTorch port)",
     )
     subs = parser.add_subparsers(dest="pipeline", required=True)
@@ -46,6 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
         sub.add_argument("--gpreg", type=float, default=1e-8, help="GP eta")
         sub.add_argument("--ndraws", type=int, default=100, help="posterior draws")
         sub.add_argument("--device", default="cuda", help="torch device (default cuda)")
+        _add_records(sub)
         if name == "seird":
             sub.add_argument(
                 "--crosscheck", action="store_true",
@@ -61,6 +84,24 @@ def build_parser() -> argparse.ArgumentParser:
                 help="GP weight-root factorization (auto: lowrank at m' >= 1024)",
             )
     _add_scaled(subs)
+    subs.add_parser(
+        "serve",
+        help="one resident process: read one command per stdin line (plain argv text or "
+        'a JSON {"argv": [...]} object), run it in this process and print one JSON ack '
+        "line after it; 'quit', 'exit' or end of input ends the session",
+    )
+    warm = subs.add_parser(
+        "warmup",
+        help="build the kernel libraries and run the flagship workloads once "
+        "(see _warmup for what this does and does not do for a later process)",
+    )
+    # No list default: argparse checks a list default of nargs="*" against
+    # the choices as one value and rejects it.
+    warm.add_argument("pipelines", nargs="*", choices=list(FLAGSHIP),
+                      help="which pipelines to run (default: all three)")
+    warm.add_argument("--ndraws", type=int, default=600,
+                      help="posterior draws (the paper's grids use 600)")
+    warm.add_argument("--device", default="cuda", help="torch device (default cuda)")
     return parser
 
 
@@ -108,7 +149,8 @@ def _add_scaled(subs):
                      dest="weight_method",
                      help="GP weight-root factorization (eigh and chol: the dense root, "
                      "applied through its Cholesky factor)")
-    sub.add_argument("--checkpoint-dir", help="checkpoint directory (not ported, raises)")
+    sub.add_argument("--checkpoint-dir",
+                     help="save the front half (data, POD, GP fit) here, or resume from it")
     sub.add_argument("--quiet", action="store_true")
     sub.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
@@ -158,11 +200,11 @@ def scaled_summary(res) -> dict:
     return summary
 
 
-def run(argv=None):
-    """Parse ``argv`` and run the pipeline; returns its result object."""
-    args = build_parser().parse_args(argv)
-    if args.pipeline == "scaled":
-        return run_scaled_args(args)
+def _run_pipeline(args):
+    """Run the seird, euler or heat pipeline of parsed arguments, under
+    ``profile_trace`` when ``--profile`` is given."""
+    import contextlib
+
     common = dict(
         training_span=(0.0, args.t_max),
         num_samples=args.num_samples,
@@ -172,34 +214,226 @@ def run(argv=None):
         ndraws=args.ndraws,
         device=args.device,
     )
-    if args.pipeline == "seird":
-        from .odes import run_seird
+    if args.profile:
+        from ..utils.timing import profile_trace
 
-        return run_seird(crosscheck=args.crosscheck, **common)
-    if args.pipeline == "euler":
-        from .pdes import run_euler
+        profile = profile_trace(args.profile, args.device)
+    else:
+        profile = contextlib.nullcontext()
+    with profile:
+        if args.pipeline == "seird":
+            from .odes import run_seird
 
-        return run_euler(
-            num_pod_modes=args.numPODmodes, ddtdata=args.ddtdata,
-            weight_method=args.weights, **common,
-        )
-    from .pdes_multi import run_heat_multi
+            return run_seird(crosscheck=args.crosscheck, **common)
+        if args.pipeline == "euler":
+            from .pdes import run_euler
 
-    return run_heat_multi(num_pod_modes=args.numPODmodes, **common)
+            return run_euler(
+                num_pod_modes=args.numPODmodes, ddtdata=args.ddtdata,
+                weight_method=args.weights, **common,
+            )
+        from .pdes_multi import run_heat_multi
+
+        return run_heat_multi(num_pod_modes=args.numPODmodes, **common)
+
+
+def run(argv=None):
+    """Parse ``argv`` and run the pipeline (``--profile`` included);
+    returns its result object. ``serve`` and ``warmup`` are not runs:
+    ``main`` takes them."""
+    args = build_parser().parse_args(argv)
+    if args.pipeline in ("serve", "warmup"):
+        raise ValueError(f"'{args.pipeline}' is not a pipeline run; call main")
+    if args.pipeline == "scaled":
+        return run_scaled_args(args)
+    return _run_pipeline(args)
+
+
+def _records_before(args):
+    """The records a run starts with, in the reference's order: the
+    log file, the dated figures folder and the scenario report. Returns
+    the folder."""
+    import logging
+
+    from ..utils.logging import setup_logging
+    from .report import figures_path, summarize_experiment
+
+    setup_logging()
+    folder = figures_path()
+    summarize_experiment(
+        training_span=(0.0, args.t_max),
+        num_samples=args.num_samples,
+        noiselevel=args.noiselevel,
+        num_regression_points=args.num_regression_points,
+        numPODmodes=getattr(args, "numPODmodes", None),
+        gp_regularizer=args.gpreg,
+        ndraws=args.ndraws,
+        folder=folder,
+    )
+    logging.info(
+        f"gpboi-torch {args.pipeline} t_max={args.t_max} m={args.num_samples} "
+        f"noise={args.noiselevel} m'={args.num_regression_points} ndraws={args.ndraws} "
+        f"device={args.device}"
+    )
+    return folder
 
 
 def main(argv=None) -> int:
-    result = run(argv)
-    if not hasattr(result, "valid"):  # a scaled run
+    """Run a command of ``build_parser``: a pipeline run with its records,
+    printout and export, ``scaled`` with its JSON summary, ``serve`` or
+    ``warmup``. Returns 0; a failure raises."""
+    import logging
+
+    args = build_parser().parse_args(argv)
+    if args.pipeline == "serve":
+        return _serve()
+    if args.pipeline == "warmup":
+        return _warmup(args.pipelines or list(FLAGSHIP), args.ndraws, args.device)
+    if args.pipeline == "scaled":
         import json
 
-        print(json.dumps(scaled_summary(result)))
+        print(json.dumps(scaled_summary(run_scaled_args(args))), flush=True)
         return 0
+
+    if args.exportto:  # fail before the run, not after it
+        from ..io.hdf5 import require_h5py
+
+        require_h5py()
+    folder = None if args.nolog else _records_before(args)
+    result = _run_pipeline(args)
     print(f"chosen regularizer: {result.regularizer:.6e}")
     valid = result.valid.reshape(-1, result.valid.shape[-1])
     for ell, row in enumerate(valid):
         tag = f"trajectory {ell} " if valid.shape[0] > 1 else ""
         print(f"{tag}stable draws: {int(row.sum())}/{row.numel()}")
+    if not args.nolog:
+        logging.info(f"chosen regularizer: {result.regularizer:.6e}")
+        if args.pipeline == "seird":
+            from .report import summarize_posterior
+
+            summarize_posterior(result.model.parameters, result.bayesian_model, folder)
+    if args.exportto:
+        from ..io.hdf5 import export_result
+
+        export_result(result, args.exportto)
+        print(f"exported artifacts with prefix {args.exportto}")
+        if not args.nolog:
+            logging.info(f"artifacts exported with prefix {args.exportto}")
+    sys.stdout.flush()
+    return 0
+
+
+def _decode_request(line: str):
+    """The argv of one ``serve`` request line: a JSON object with an
+    "argv" list, a JSON list, or plain text split like a shell. Raises
+    ValueError for anything else."""
+    import json
+    import shlex
+
+    try:
+        req = json.loads(line)
+    except json.JSONDecodeError:
+        return shlex.split(line)
+    if isinstance(req, dict):
+        if "argv" not in req:
+            raise ValueError('a JSON request needs an "argv" list')
+        req = req["argv"]
+    if not isinstance(req, list) or not req:
+        raise ValueError("argv must be a non-empty list")
+    return [str(a) for a in req]
+
+
+def _serve() -> int:
+    """One resident process answering commands from stdin.
+
+    Every process pays a first-run cost that later runs do not: CUDA's
+    context, cuBLAS and cuSOLVER set-up, the first GP fit and the loading
+    of the kernel libraries. ``serve`` pays it once for many runs.
+
+    Protocol: one command per line, plain argv text (``seird 90 90 0.10
+    360 --ndraws 600 --nolog``) or JSON (``{"argv": ["seird", ...]}``).
+    Blank lines and ``#`` lines are skipped; ``quit``, ``exit`` or end of
+    input ends the session, with 0. After each command's own output comes
+    one flushed JSON ack line, ``{"serve": {"rc": ..., "wall_s": ...,
+    "argv": [...], "launches": {...}}}``, with ``"error"`` on failure: rc
+    2 for a request that does not decode (``"argv": null``), a nested
+    ``serve`` or argv that the parser rejects, rc 1 for a run that raised.
+    No failed command ends the server. ``launches`` counts the screen
+    kernels' launches during the command (the wrappers' counters).
+    """
+    import json
+    import time
+
+    from ..ops import cahbn_screen, ensemble_screen
+
+    def counts():
+        return {"quadratic_ensemble_screen": ensemble_screen.launches,
+                "cahbn_ensemble_screen": cahbn_screen.launches}
+
+    for line in sys.stdin:
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        if line in ("quit", "exit"):
+            break
+        t0, before = time.perf_counter(), counts()
+        argv = None
+        try:
+            argv = _decode_request(line)
+        except ValueError as exc:
+            ack = {"rc": 2, "error": f"bad request: {exc}"}
+        else:
+            if argv[:1] == ["serve"]:
+                ack = {"rc": 2, "error": "cannot nest serve"}
+            else:
+                try:
+                    ack = {"rc": int(main(argv) or 0)}
+                except SystemExit as exc:  # the parser rejected argv
+                    ack = {"rc": exc.code if isinstance(exc.code, int) else 2,
+                           "error": "argparse rejected argv"}
+                except Exception as exc:  # the run failed; keep serving
+                    ack = {"rc": 1, "error": repr(exc)}
+        ack["wall_s"] = time.perf_counter() - t0
+        ack["argv"] = argv
+        ack["launches"] = {name: n - before[name] for name, n in counts().items()}
+        print(json.dumps({"serve": ack}), flush=True)
+    return 0
+
+
+def _warmup(pipelines, ndraws: int, device) -> int:
+    """Build the kernel libraries, then run each pipeline's flagship
+    workload once (``experiments.run_workload``: SEIRD ex1a, Euler ex1a,
+    heat ex3) on ``device``.
+
+    What persists for a later process is the kernel build: each
+    ``csrc/*.cu`` library stays under ``build/gp_bayesopinf_torch/``, keyed
+    by a hash of its source, and a later process loads it without
+    ``nvcc``. What does not persist is everything else of a process's
+    first run: the CUDA context, cuBLAS and cuSOLVER set-up, and the first
+    GP fit; no compile cache stands behind them. Run ``warmup`` as the
+    first command of ``serve`` to pay that once for the server's later
+    runs.
+    """
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..utils.device import resolve_device
+    from .experiments import run_workload
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from ..ops.build import build
+
+        names = ("quadratic_screen", "cahbn_screen")
+        with ThreadPoolExecutor(len(names)) as pool:
+            for info in pool.map(build, names):
+                how = f"built in {info.seconds:.1f} s" if info.seconds else "already built"
+                print(f"[warmup] kernel library {info.path} {how}", flush=True)
+    for name in pipelines:
+        t0 = time.perf_counter()
+        print(f"[warmup] {name} {FLAGSHIP[name]} (ndraws={ndraws}) on {dev} ...", flush=True)
+        run_workload(name, FLAGSHIP[name], ndraws=ndraws, device=dev, verbose=False)
+        print(f"[warmup] {name} done in {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 
 

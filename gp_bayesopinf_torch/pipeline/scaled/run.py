@@ -17,13 +17,15 @@ stability and ranks candidates); the final ensembles are float64 again.
 """
 
 import dataclasses
+import os
 from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
-from ...gp.fit import fit_gp_hyperparameters
+from ...gp.fit import FitResult, fit_gp_hyperparameters
 from ...gp.nlml import BoxTransform
+from ...io.checkpoint import has_checkpoint, load_checkpoint, pipeline_stage_state, save_checkpoint
 from ...parallel.sharded import randomized_pod, tall_skinny_svd
 from ...rom import GalerkinROM
 from ...solve.lstsq import WeightedLSTSQ
@@ -84,7 +86,7 @@ class ScaledNormals:
 
 def _check_arguments(
     regularization, modelform, tikhonov_gamma, time_windows, num_regression_points,
-    window_chaining, window_basis, checkpoint_dir, mesh,
+    window_chaining, window_basis, mesh,
 ):
     if regularization not in ("scalar", "blocked", "gamma"):
         raise ValueError(f"unknown regularization '{regularization}'")
@@ -109,11 +111,6 @@ def _check_arguments(
         raise NotImplementedError(
             "window_basis='local' (a POD basis, GP fits and envelope per window) is "
             "not ported: ROADMAP queue 1, item 12"
-        )
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoint_dir (checkpoint and resume of the front half) is not ported: "
-            "ROADMAP queue 1, item 13"
         )
     if mesh is not None:
         raise NotImplementedError(
@@ -224,13 +221,19 @@ def run_scaled(
     "anchor"; ``rollout``) picks the boundary scheme that ``train_error``
     and ``ensemble_mean`` report; all three errors are recorded.
 
-    Not ported, each raising NotImplementedError: ``window_basis="local"``,
-    ``checkpoint_dir`` and ``mesh``. ``normals`` replaces random numbers
-    (``ScaledNormals``).
+    ``checkpoint_dir``: the front half (data, POD, the GP samples and the
+    GP fit) is saved to ``<checkpoint_dir>/scaled_fit_stage``
+    (``io.checkpoint``); a later run whose sizes, seed and source match
+    loads it in place of computing it and returns the same result to the
+    bit (every later stage draws from a generator of its own). A
+    checkpoint of another run is recomputed and overwritten.
+
+    Not ported, each raising NotImplementedError: ``window_basis="local"``
+    and ``mesh``. ``normals`` replaces random numbers (``ScaledNormals``).
     """
     _check_arguments(
         regularization, modelform, tikhonov_gamma, time_windows, num_regression_points,
-        window_chaining, window_basis, checkpoint_dir, mesh,
+        window_chaining, window_basis, mesh,
     )
     dev = resolve_device(device)
     f64 = torch.float64
@@ -251,9 +254,31 @@ def run_scaled(
         weight_method = "chol"
     blocked = regularization == "blocked"
 
-    ts, Y, svdvals, fit = _compress_and_fit(
-        stage, gens, given, dev, data_source, n_space, n_snapshots, r, num_gp_samples, n_restarts
-    )
+    ckpt_path = os.path.join(checkpoint_dir, "scaled_fit_stage") if checkpoint_dir else None
+    # The JAX package's key, and the two sizes of the front half that it
+    # leaves out: a checkpoint of another sample count or restart count
+    # would resume other samples or another fit.
+    ckpt_shape = [n_space, n_snapshots, num_modes, seed, data_source, window_basis, 0,
+                  num_gp_samples, n_restarts]
+    resumed = None
+    if ckpt_path and has_checkpoint(ckpt_path):
+        state, meta = load_checkpoint(ckpt_path, device=dev)
+        if meta.get("shape") == ckpt_shape:
+            resumed = state
+    if resumed is not None:
+        ts, Y, svdvals = resumed["ts"], resumed["Y"], resumed["svdvals"]
+        fit = FitResult(*(resumed[k] for k in FitResult._fields))
+    else:
+        ts, Y, svdvals, fit = _compress_and_fit(
+            stage, gens, given, dev, data_source, n_space, n_snapshots, r, num_gp_samples,
+            n_restarts,
+        )
+        if ckpt_path:
+            save_checkpoint(
+                ckpt_path,
+                pipeline_stage_state(ts=ts, Y=Y, svdvals=svdvals, **fit._asdict()),
+                metadata={"shape": ckpt_shape},
+            )
 
     rom = GalerkinROM(modelform, state_dimension=r, substeps=2)
     tw = torch.linspace(0.0, 1.0, num_regression_points, dtype=f64, device=dev).reshape(W, mw)

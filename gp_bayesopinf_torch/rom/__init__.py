@@ -4,8 +4,10 @@ from .basis import EulerScaledBasis, PODBasis, QuadraticLiftedBasis, shift
 from .model import GalerkinROM
 from .operators import (
     assemble_data_matrix,
+    blocked_gamma_diag,
     extract_operators,
     operator_dims,
+    operator_splits,
     rom_rhs,
     rom_rhs_jacobian,
     total_dim,
@@ -13,6 +15,6 @@ from .operators import (
 
 __all__ = [
     "EulerScaledBasis", "PODBasis", "QuadraticLiftedBasis", "shift",
-    "GalerkinROM", "assemble_data_matrix", "extract_operators",
-    "operator_dims", "rom_rhs", "rom_rhs_jacobian", "total_dim",
+    "GalerkinROM", "assemble_data_matrix", "blocked_gamma_diag", "extract_operators",
+    "operator_dims", "operator_splits", "rom_rhs", "rom_rhs_jacobian", "total_dim",
 ]

@@ -11,7 +11,9 @@ from typing import Callable, Optional
 
 import torch
 
-from .operators import assemble_data_matrix, rom_rhs, rom_rhs_jacobian, total_dim
+from .operators import (
+    assemble_data_matrix, extract_operators, rom_rhs, rom_rhs_jacobian, total_dim,
+)
 from ..ops.cahbn_screen import input_stage_times
 from ..solve.ivp import dirk2_solve, rk4_solve, rk4_stage_times
 
@@ -49,6 +51,27 @@ class GalerkinROM:
     ) -> torch.Tensor:
         """(k, d) regression features from (r, k) states [+ (m, k) inputs]."""
         return assemble_data_matrix(states, inputs, self.structure)
+
+    def extract_operators(self, Ohat: torch.Tensor):
+        """The named blocks {"c", "A", "H", "B", "N"} of (..., r, d)
+        operators."""
+        return extract_operators(Ohat, self.structure, self.state_dimension, self.input_dimension)
+
+    def rhs(
+        self,
+        Ohat: torch.Tensor,
+        t,
+        q: torch.Tensor,
+        input_func: Optional[Callable] = None,
+    ) -> torch.Tensor:
+        """dq/dt at time ``t`` for (..., r, d) operators and (..., r)
+        states; ``input_func`` as in ``predict``, called on the one time
+        ``t`` (the inputs are its (m,) or (..., m) column)."""
+        u = None
+        if input_func is not None:
+            u = input_func(torch.atleast_1d(torch.as_tensor(t, dtype=q.dtype, device=q.device)))
+            u = u[..., 0]
+        return rom_rhs(Ohat, q, u, self.structure)
 
     def predict(
         self,

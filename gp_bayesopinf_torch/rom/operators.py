@@ -16,6 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from ..ops.quadratic import ckron, ckron_jacobian_pattern, state_input_kron
+from ..utils.device import DeviceLike
 
 _VALID = set("cAHBN")
 
@@ -39,6 +40,28 @@ def operator_splits(structure: str, r: int, m: int = 0):
         spans.append((ch, pos, pos + w))
         pos += w
     return spans
+
+
+def blocked_gamma_diag(
+    structure: str, r: int, m: int = 0, lams: Optional[Dict] = None,
+    default: float = 0.0, *, device: DeviceLike,
+) -> torch.Tensor:
+    """(d,) float32 diagonal Tikhonov regularizer with one value per
+    operator block, on ``device``.
+
+    ``lams`` maps operator letters to values, e.g. ``{"c": l1, "A": l1,
+    "H": l2}``, the OpInf scheme that shrinks the quadratic block apart
+    from the linear dynamics; letters absent from it get ``default``.
+    Values are Python floats or scalar tensors.
+    """
+    lams = lams or {}
+    if not set(lams) <= _VALID:
+        raise ValueError(f"unknown operators in lams {sorted(lams)}")
+    parts = []
+    for ch, a, b in operator_splits(structure, r, m):
+        val = torch.as_tensor(lams.get(ch, default), dtype=torch.float32, device=device)
+        parts.append(val.expand(b - a))
+    return torch.cat(parts)
 
 
 def extract_operators(Ohat: torch.Tensor, structure: str, r: int, m: int = 0):

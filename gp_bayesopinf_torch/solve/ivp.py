@@ -5,7 +5,8 @@
   interval.
 * ``dirk2_solve``: the 2-stage L-stable SDIRK (gamma = 1 - sqrt(2)/2) with
   a fixed count of full Newton steps per stage, for the stiff ROM
-  ensembles.
+  ensembles, and with tridiagonal Newton systems by ``thomas_solve`` for
+  the heat model's device solve.
 * ``dirk2_solve_np``: its NumPy twin with LAPACK ``dgtsv`` Newton solves,
   for the host truth solves of the tridiagonal heat model.
 * ``rk4_solve_np``: the NumPy twin of ``rk4_solve`` for one trajectory,
@@ -17,7 +18,7 @@ clamped at +-1e18 and runs to the end; ``stability_mask`` then marks it
 invalid, the mask form of the reference's early termination.
 """
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -134,13 +135,41 @@ def solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, dim=-1)
 
 
+def thomas_solve(
+    dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, b: torch.Tensor
+) -> torch.Tensor:
+    """Solve a batch of tridiagonal systems by the Thomas algorithm.
+
+    The diagonals are in the LAPACK gtsv layout, each (..., n): ``dl`` the
+    subdiagonal with dl[..., 0] unused, ``d`` the diagonal, ``du`` the
+    superdiagonal with du[..., -1] unused; ``b`` (..., n). Leading axes
+    broadcast. No pivoting: the intended systems are the diagonally
+    dominant Newton matrices I - h gamma J of the heat model. O(n) work in
+    2n sequential steps of batched elementwise operations.
+    """
+    batch = torch.broadcast_shapes(dl.shape, d.shape, du.shape, b.shape)
+    dl, d, du, b = (x.expand(batch).unbind(-1) for x in (dl, d, du, b))
+    n = len(d)
+    cp, bp = [du[0] / d[0]], [b[0] / d[0]]
+    for i in range(1, n):
+        m = d[i] - dl[i] * cp[i - 1]
+        cp.append(du[i] / m)
+        bp.append((b[i] - dl[i] * bp[i - 1]) / m)
+    x = [None] * n
+    x[-1] = bp[-1]
+    for i in range(n - 2, -1, -1):
+        x[i] = bp[i] - cp[i] * x[i + 1]
+    return torch.stack(x, dim=-1)
+
+
 def dirk2_solve(
     rhs: Callable,
     q0: torch.Tensor,
     t_eval: torch.Tensor,
-    jac: Callable,
+    jac: Optional[Callable] = None,
     substeps: int = 2,
     newton_iters: int = 6,
+    jac_tridiag: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Integrate a stiff system with 2-stage L-stable SDIRK and full Newton.
 
@@ -169,21 +198,32 @@ def dirk2_solve(
         the second, t + h. A time-independent system ignores j.
     q0 : (..., n) initial state; leading axes are a batch.
     t_eval : (k,) output times.
+    jac_tridiag : in place of ``jac``, a callable (j, q) -> (dl, diag, du)
+        giving a tridiagonal Jacobian in the gtsv layout of
+        ``thomas_solve``, which then solves the Newton systems in O(n)
+        (the heat model). Exactly one of ``jac`` and ``jac_tridiag``.
 
     Returns
     -------
     (..., n, k) states at ``t_eval``.
     """
+    if (jac is None) == (jac_tridiag is None):
+        raise ValueError("dirk2_solve takes exactly one of jac and jac_tridiag")
     n = q0.shape[-1]
     eye = torch.eye(n, dtype=q0.dtype, device=q0.device)
     hs = ((t_eval[1:] - t_eval[:-1]) / substeps).tolist()
+
+    def newton_step(j, x, hg, F):
+        if jac_tridiag is not None:
+            dl, dg, du = jac_tridiag(j, x)
+            return thomas_solve(-hg * dl, 1.0 - hg * dg, -hg * du, F)
+        return torch.linalg.solve_ex(eye - hg * jac(j, x), F)[0]
 
     def solve_stage(j, q_base, hg, k):
         for _ in range(newton_iters):
             x = q_base + hg * k
             F = k - rhs(j, x)
-            dk, _ = torch.linalg.solve_ex(eye - hg * jac(j, x), F)
-            k = k - dk
+            k = k - newton_step(j, x, hg, F)
         return k
 
     q = q0

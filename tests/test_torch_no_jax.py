@@ -3,9 +3,10 @@ module of ``gp_bayesopinf_torch`` and running a forward call through the
 GP, the regression, both screens, a cAHBN ROM integration with inputs and
 a SEIRD search and ensemble leaves ``jax`` out of ``sys.modules``; the
 SEIRD part, the low-rank Euler route, the Tikhonov regularizers, the
-tall-matrix factorizations, ``run_scaled``, the ``scaled`` command line
-and a named workload run with ``jax`` and ``gp_bayesopinf_tpu`` blocked
-from import."""
+tall-matrix factorizations, ``run_scaled``, the ``scaled`` command line,
+a named workload, the HDF5 export, the scaled checkpoint, ``serve`` and
+``warmup`` (its workloads replaced) run with ``jax`` and
+``gp_bayesopinf_tpu`` blocked from import."""
 
 import os
 import subprocess
@@ -113,6 +114,25 @@ tiny = ["scaled", "--n-space", "48", "--k", "80", "--modes", "2", "--gp-samples"
 out = cli.run(tiny + ["--windows", "2", "--weights", "lowrank"])
 assert out.window_regularizers.shape == (2,) and out.weight_ranks.shape == (2, 2)
 assert cli.main(tiny + ["--modelform", "cAH", "--regularization", "blocked"]) == 0
+
+# The service layer: export, checkpoint, serve and warmup.
+import io, json, tempfile
+from gp_bayesopinf_torch.io import export_result, load_bayesian_rom
+
+scratch = tempfile.mkdtemp()
+export_result(res, scratch + "/euler")
+assert load_bayesian_rom(scratch + "/euler_posterior.h5", device="cpu").ndims == 2
+ckpt = tiny + ["--checkpoint-dir", scratch]
+first, again = cli.run(ckpt), cli.run(ckpt)
+assert "gp_fit" in first.stage_seconds and "gp_fit" not in again.stage_seconds
+assert again.regularizer == first.regularizer
+experiments.run_workload = lambda pipeline, name, ndraws=600, *, device, **kw: None
+sys.stdin = io.StringIO(" ".join(tiny) + "\nwarmup seird --device cpu\n42\nquit\n")
+real_stdout, sys.stdout = sys.stdout, io.StringIO()
+assert cli.main(["serve"]) == 0
+lines, sys.stdout = sys.stdout.getvalue().splitlines(), real_stdout
+acks = [json.loads(l)["serve"] for l in lines if l.startswith('{"serve"')]
+assert [a["rc"] for a in acks] == [0, 0, 2], acks
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "gp_bayesopinf_tpu") for m in sys.modules)
 print("ok")
 """

@@ -565,7 +565,6 @@ def test_lowrank_auto_threshold(monkeypatch):
     (dict(window_basis="local"), ValueError, "requires time_windows > 1"),
     (dict(data_source="heat"), ValueError, "unknown data_source"),
     (dict(window_basis="local", time_windows=2), NotImplementedError, "item 12"),
-    (dict(checkpoint_dir="ckpt"), NotImplementedError, "item 13"),
     (dict(mesh=object()), NotImplementedError, "item 12"),
 ])
 def test_run_scaled_guards(kwargs, error, match):
@@ -612,5 +611,9 @@ def test_scaled_cli(capsys, tmp_path):
     assert len(summary["window_regularizers"]) == 2
     with pytest.raises(NotImplementedError, match="item 12"):
         cli.run(small + ["--windows", "2", "--window-basis", "local"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cli.run(small + ["--checkpoint-dir", str(tmp_path)])
+    first = cli.run(small + ["--checkpoint-dir", str(tmp_path)])
+    resumed = cli.run(small + ["--checkpoint-dir", str(tmp_path)])
+    assert {"data", "pod", "gp_fit"} <= set(first.stage_seconds)
+    assert not {"data", "pod", "gp_fit"} & set(resumed.stage_seconds)
+    assert resumed.regularizer == first.regularizer
+    np.testing.assert_array_equal(resumed.ensemble_mean, first.ensemble_mean)

@@ -249,14 +249,17 @@ def test_run_seird_crosscheck():
     assert "crosscheck" in res.stage_seconds
 
 
-def test_seird_cli_end_to_end(monkeypatch, capsys):
+def test_seird_cli_end_to_end(monkeypatch, capsys, tmp_path):
     """The ``seird`` subcommand through parser, pipeline and printout, at
-    the small configuration in place of the default one."""
+    the small configuration in place of the default one; its records go
+    to the working directory, here a temporary one."""
+    monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(odes, "SEIRDConfig", _small_config)
     argv = ["seird", "60", str(M), str(NOISE), str(MPRIME), "--ndraws", "12", "--device", "cpu"]
     assert cli.main(argv) == 0
     out = capsys.readouterr().out
     assert "chosen regularizer:" in out and "stable draws:" in out and "/12" in out
+    assert (tmp_path / "log.log").is_file() and "POSTERIOR DISTRIBUTION" in out
     args = cli.build_parser().parse_args(["seird", "90", "90", "0.10", "360"])
     assert (args.device, args.ndraws, args.crosscheck) == ("cuda", 100, False)
     with pytest.raises(SystemExit):  # seird takes no POD-mode count
