@@ -17,12 +17,21 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    SEIRD screen shapes (r = 5, d = 21, operators made by
    ``SEIRD2.cah_operators`` of perturbed parameter draws; k = 360 over
    [0, 90] with the error term, k = 500 over [0, 200] without);
+3b. kernel A's runtime-r kernel (above the templated r <= 12) against the
+   plain version at r = 13, 16 and 24 (d = 105, 153, 325) with phase 3's
+   cases (k = 400 with the error term and k = 401 without, nd = 7, L = 2),
+   timed; then forced at r = 6 against the templated instance: identical
+   flags;
 4. the same for kernel B (SDIRK2 "cAHBN" screen) at the heat ex3 screen
    shapes (G = 16, r = 5, nu = 2, d = 33, 4 substeps, 6 Newton steps,
    the ex3 input family): k = 80 with the error term, k = 120 over [0, 2]
    without it, nd = 7, and ex3's L = 5 trajectories in one launch, each
    with its own q0 and (a, b) inputs; the kernel is also timed at the
    full prediction grid, k = 500, with L = 1 and L = 5;
+4b. kernel B's runtime-(r, nu) kernel (above r <= 8, nu <= 2) against the
+   plain version at r = 9 and 12 with nu = 2 (the ex3 input family) and r
+   = 6 with nu = 3, k = 80 with the error term, timed; at r = 9 also k =
+   40 without it, and with it nd = 7 and L = 5 in one launch (k = 40);
 5. run the full ex1a workload through the port's CLI entry
    (``euler 0.06 200 0.03 400 6 --ndraws 600`` on ``cuda``) and check
    that the grid search went through kernel A, two launches per objective
@@ -43,6 +52,10 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    600``: m' = 3200, so the GP weights are the factored low-rank roots)
    and check that its search went through kernel A, two launches per
    objective evaluation, and that the ensemble is sound;
+8b. ``euler 0.06 200 0.03 400 16 --ndraws 600`` and 8c. ``heat 1.0 20
+   0.05 80 9 --ndraws 600``: searches above the templated instances, so
+   through the runtime-dimension kernels; two launches per objective
+   evaluation, a sound ensemble, lambda, valid counts and errors printed;
 9. run the production-scale pipeline at its defaults (``scaled``: n =
    6000, 10,000 snapshots, 30 modes, m' = 2048, low-rank roots, 256
    draws) and check its regularizer, grid, stable share, training error
@@ -53,6 +66,13 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
 10. one smaller windowed run (Euler source, 4 windows, "cAH", a scaled
     column-norm Tikhonov matrix) so that path touches the card: finite
     outputs only, no accuracy gate;
+10b. local window bases at the JAX package's production width (Euler
+    source, n = 6000, 12 modes, 8 windows of 256 GP samples, m' = 2048, 16
+    restarts, 256 draws, anchor chaining; the snapshots cut from 10,000 to
+    2,400, the Euler truth solve's share of the wall): eight
+    finite positive regularizers, every window basis orthonormal to 1e-5,
+    a window's end state through the transfer equal to the full-space map,
+    finite window and chained errors, printed beside the JAX package's;
 11. the resident server: ``python3 -m gp_bayesopinf_torch.pipeline.cli
     serve`` as a fresh process in ``build/chip_smoke/serve`` answers
     ``warmup seird``, the SEIRD ex1a run as plain text, as JSON, with
@@ -63,9 +83,9 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
     the profiled request's trace must hold the stage ranges and that many
     kernel A launches; the acks' walls are the process's first run
     (warmup) against its warm runs;
-12. the checkpoint: ``scaled`` at its defaults with a fresh
-    ``--checkpoint-dir``, then again with it: the same result to the bit,
-    and no data, POD or GP-fit stage in the second run.
+12. the checkpoint: ``scaled`` at its defaults but m' = 512 with a
+    fresh ``--checkpoint-dir``, then again with it: the same result to
+    the bit, and no data, POD or GP-fit stage in the second run.
 
 The last two lines of standard output are a JSON summary of the kernels
 and a JSON status line.
@@ -90,7 +110,22 @@ EX3 = ["heat", "1.0", "20", "0.05", "80", "5", "--ndraws", "600", "--device", "c
 SEIRD_EX1A = ["seird", "90", "90", "0.10", "360", "--ndraws", "600", "--device", "cuda"]
 EX1C = ["euler", "0.06", "200", "0.03", "3200", "6", "--ndraws", "600", "--device", "cuda"]
 SCALED = ["scaled", "--quiet", "--device", "cuda"]
-SCALED_WINDOWED = ["scaled", "--source", "euler", "--n-space", "600", "--k", "2000", "--modes", "8",
+EULER16 = ["euler", "0.06", "200", "0.03", "400", "16", "--ndraws", "600", "--device", "cuda"]
+# r = 9, not 10: at r = 10 the 20-draw grid screen rejects every candidate
+# on the card (PERF.md, section 6), so 9 is the largest r above the templated
+# instances (r <= 8) at which the heat search completes.
+HEAT9 = ["heat", "1.0", "20", "0.05", "80", "9", "--ndraws", "600", "--device", "cuda"]
+# Local window bases at the JAX package's production width (BASELINE.md,
+# round 5: nx 2000, k 10,000, m' 2048, W 8, 16 restarts, 256 draws, r 12,
+# 256 GP samples a window, anchor chaining), with one cut: k 10,000 ->
+# 2,400 snapshots (300 a window), since the Euler truth solve took 125 of
+# the phase's 146 s at 10,000 on an H100.
+SCALED_LOCAL = ["scaled", "--source", "euler", "--n-space", "6000", "--k", "2400", "--modes", "12",
+                "--gp-samples", "2048", "--mprime", "2048", "--restarts", "16", "--ndraws", "256",
+                "--windows", "8", "--window-basis", "local", "--chaining", "anchor",
+                "--modelform", "cAH", "--quiet", "--device", "cuda"]
+# Cut in depth to 1000 snapshots (from 2000): the truth solve set its wall.
+SCALED_WINDOWED = ["scaled", "--source", "euler", "--n-space", "600", "--k", "1000", "--modes", "8",
                    "--gp-samples", "256", "--mprime", "512", "--windows", "4", "--modelform", "cAH",
                    "--regularization", "gamma", "--quiet", "--device", "cuda"]
 KERNELS = {  # name: (source, the TPU kernel it replaces)
@@ -113,11 +148,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def screen_case(G, nd, k, t_max, rng, track_error):
-    """Synthetic ex1a-shaped screen inputs with known outcomes: candidate
-    G-1 diverges to the clip, candidate G-2 leaves the envelope, draw 3 has
-    a NaN operator; every other draw decays well inside the envelope."""
-    r = 6
+def screen_case(G, nd, k, t_max, rng, track_error, r=6):
+    """Synthetic ex1a-shaped screen inputs (r = 6 unless given) with known
+    outcomes: candidate G-1 diverges to the clip, candidate G-2 leaves the
+    envelope, draw 3 has a NaN operator; every other draw decays well
+    inside the envelope."""
     d = 1 + r + r * (r + 1) // 2
     Ohat = 0.3 * rng.standard_normal((G * nd, r, d))
     Ohat[:, :, 1 : 1 + r] += -20.0 * np.eye(r)
@@ -314,13 +349,14 @@ def kernel_phase():
               f"flags identical ({int(s_k.sum())}/{s_k.numel()} stable)", flush=True)
         if r == 5:
             ms = cuda_ms(lambda: es.quadratic_ensemble_screen_cuda(*f.values(), **kw), 10)
-            plain_ms = cuda_ms(lambda: es._plain(*f.values(), nd, 8, track), 1)
+            plain_ms = start.elapsed_time(stop)  # the plain run of the check above
             bound, by = bound_ms(quadratic_flops(G * nd, 5, k, 8),
                                  screen_bytes(f.values(), G * nd, G))
             seird[f"k{k}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
             print(f"[kernel vs plain] SEIRD r=5 k={k} track_error={track}: kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms (CUDA events), bound {bound:.4f} ms ({by}); "
-                  f"{1e6 * ms / ((k - 1) * 8 * 4):.1f} ns per right-hand side", flush=True)
+                  f"plain {plain_ms:.3f} ms (CUDA events, one run), bound {bound:.4f} ms "
+                  f"({by}); {1e6 * ms / ((k - 1) * 8 * 4):.1f} ns per right-hand side",
+                  flush=True)
         if (r, G, nd, k) == (6, 16, 20, 400):
             ms = cuda_ms(lambda: es.quadratic_ensemble_screen_cuda(*f.values(), **kw), 10)
             flops = quadratic_flops(G * nd, r, k, 8) * (L or 1)
@@ -329,24 +365,35 @@ def kernel_phase():
                 print(f"[kernel vs plain] k=400 with error, L={L} in one launch: kernel "
                       f"{ms:.3f} ms (CUDA events), bound {bound:.4f} ms ({by})", flush=True)
                 continue
-            plain_ms = cuda_ms(lambda: es._plain(*f.values(), nd, 8, track), 2)
+            plain_ms = start.elapsed_time(stop)  # the plain run of the check above
             times = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
             print(f"[kernel vs plain] k=400 with error: kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms (CUDA events), bound {bound:.4f} ms "
+                  f"plain {plain_ms:.3f} ms (CUDA events, one run), bound {bound:.4f} ms "
                   f"({by}); {1e6 * ms / ((k - 1) * 8 * 4):.1f} ns per right-hand side",
                   flush=True)
     return dict(max_abs_err=max_err, seird=seird, ex1c=ex1c, **times)
 
 
-def cahbn_case(G, nd, k, t_max, rng, track_error):
-    """Synthetic heat-ex3-shaped cAHBN screen inputs (r = 5, nu = 2, the
-    ex3 input family at (a, b) = (1, -1), 4 substeps) with known outcomes:
-    candidate G-1 diverges to the clip, candidate G-2 leaves the envelope,
-    draw 3 has a NaN operator; every other draw decays well inside it."""
+def ex3_inputs(params, t, nu=2):
+    """The ex3 input family at (a, b) = ``params`` at every time the SDIRK2
+    screen reads (4 substeps): ((k-1) 12, nu). A third channel, where nu =
+    3, is sin(2 pi t)."""
     from gp_bayesopinf_torch.ops.cahbn_screen import input_stage_times
     from gp_bayesopinf_torch.pipeline.pdes_multi import input_func_factory
 
-    r, nu = 5, 2
+    ts = input_stage_times(t, 4)
+    u = input_func_factory(params)(ts).T
+    if nu == 3:
+        u = torch.cat([u, torch.sin(2.0 * math.pi * ts)[:, None]], dim=1)
+    return u
+
+
+def cahbn_case(G, nd, k, t_max, rng, track_error, r=5, nu=2):
+    """Synthetic heat-ex3-shaped cAHBN screen inputs (r = 5 and nu = 2
+    unless given, the ex3 input family at (a, b) = (1, -1), 4 substeps)
+    with known outcomes: candidate G-1 diverges to the clip, candidate G-2
+    leaves the envelope, draw 3 has a NaN operator; every other draw decays
+    well inside it."""
     d = 1 + r + r * (r + 1) // 2 + nu + nu * r
     Ohat = 0.3 * rng.standard_normal((G * nd, r, d))
     Ohat[:, :, 1 : 1 + r] += -20.0 * np.eye(r)
@@ -355,7 +402,7 @@ def cahbn_case(G, nd, k, t_max, rng, track_error):
     Ohat[(G - 2) * nd : (G - 1) * nd, :, 1 : 1 + r] += 26.0 * np.eye(r)  # past the envelope
     Ohat[3, 0, 0] = np.nan
     t = torch.linspace(0.0, t_max, k, dtype=torch.float64, device="cuda")
-    u = input_func_factory((1.0, -1.0))(input_stage_times(t, 4)).T
+    u = ex3_inputs((1.0, -1.0), t, nu)
     args = dict(
         Ohat=Ohat, q0=0.5 * rng.standard_normal(r), t_eval=t, shift=np.zeros(r),
         limits=np.full(r, 10.0), u_stages=u,
@@ -394,7 +441,12 @@ def cahbn_phase():
         if k < 500:  # the plain version takes ~5 s a problem at k = 80
             s_k, e_k = cs.cahbn_ensemble_screen(*a.values(), **kw)
             torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
             s_p, e_p, maxdev = cs._plain(*f.values(), nd, 4, 6, track)
+            stop.record()
+            torch.cuda.synchronize()
             err = hold("B", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd, track, L > 0)
             max_err = max(max_err, err)
             print(f"[kernel B vs plain] G={G} nd={nd} k={k} track_error={track} L={L or 1}: "
@@ -409,11 +461,126 @@ def cahbn_phase():
               f"ms (CUDA events), bound {bound:.4f} ms ({by}); {newton_ns:.1f} ns per Newton "
               "step", flush=True)
         if (k, L) == (80, 0):
-            plain_ms = cuda_ms(lambda: cs._plain(*f.values(), nd, 4, 6, track), 1)
+            plain_ms = start.elapsed_time(stop)  # the plain run of the check above
             fields = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
-            print(f"[kernel B vs plain] k=80 with error: plain {plain_ms:.3f} ms (CUDA events)",
-                  flush=True)
+            print(f"[kernel B vs plain] k=80 with error: plain {plain_ms:.3f} ms (CUDA events, "
+                  "one run)", flush=True)
     return dict(max_abs_err=max_err, **fields)
+
+
+def any_r_phase():
+    """Phase 3b: kernel A's runtime-r kernel against its plain version at r
+    = 13, 16 and 24 (d = 105, 153, 325) with phase 3's cases, then forced
+    at r = 6 against the templated instance. Returns the JSON fields of
+    each r, from its k = 400 error-tracking call."""
+    from gp_bayesopinf_torch.ops import ensemble_screen as es
+
+    rng = np.random.default_rng(20261017)
+    f32 = torch.float32
+    out = {}
+    # (r, G, nd, k, t_max, track_error, L); L = 0 is the single-problem form.
+    cases = [(r, 16, 20, 400, 0.06, True, 0) for r in (13, 16, 24)]
+    cases += [(16, 16, 20, 401, 0.15, False, 0), (16, 16, 7, 400, 0.06, True, 0),
+              (16, 16, 20, 400, 0.06, True, 2)]
+    for r, G, nd, k, t_max, track, L in cases:
+        a = screen_case(G, nd, k, t_max, rng, track, r=r)
+        if L:
+            a = batched_case(a, L, rng, {})
+        f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
+        kw = dict(nd=nd, substeps=8, track_error=track)
+        s_k, e_k = es.quadratic_ensemble_screen(*a.values(), **kw)
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        s_p, e_p, maxdev = es._plain(*f.values(), nd, 8, track)
+        stop.record()
+        torch.cuda.synchronize()
+        err = hold(f"A r={r}", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd, track, L > 0)
+        print(f"[kernel A, runtime r] r={r} G={G} nd={nd} k={k} track_error={track} L={L or 1}: "
+              f"flags identical ({int(s_k.sum())}/{s_k.numel()} stable), err_sq max abs diff "
+              f"{err:.3e}", flush=True)
+        if (nd, k, L) != (20, 400, 0):
+            continue
+        ms = cuda_ms(lambda: es.quadratic_ensemble_screen_cuda(*f.values(), **kw), 5)
+        bound, by = bound_ms(quadratic_flops(G * nd, r, k, 8), screen_bytes(f.values(), G * nd, G))
+        out[r] = dict(ms=ms, plain_ms=start.elapsed_time(stop), bound_ms=bound, bound_by=by,
+                      max_abs_err=err)
+        print(f"[kernel A, runtime r] r={r} k=400 with error: kernel {ms:.3f} ms, plain "
+              f"{out[r]['plain_ms']:.3f} ms (CUDA events; plain one run), bound {bound:.4f} ms "
+              f"({by}); {1e6 * ms / ((k - 1) * 8 * 4):.1f} ns per right-hand side", flush=True)
+
+    # The runtime-r kernel at r = 6 against the templated instance.
+    for L in (0, 2):
+        a = screen_case(16, 20, 400, 0.06, rng, True)
+        if L:
+            a = batched_case(a, L, rng, {})
+        f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
+        kw = dict(nd=20, substeps=8, track_error=True)
+        s_t, e_t = es.quadratic_ensemble_screen_cuda(*f.values(), **kw)
+        s_a, e_a = es.quadratic_ensemble_screen_cuda(*f.values(), **kw, any_r=True)
+        torch.cuda.synchronize()
+        assert torch.equal(s_a, s_t), f"r=6: flags differ: {torch.nonzero(s_a != s_t).tolist()}"
+        ok = s_t.reshape(s_t.shape[:-1] + (16, 20)).all(dim=-1) & torch.isfinite(e_t)
+        torch.testing.assert_close(e_a[ok], e_t[ok], rtol=1e-3, atol=0.0)
+        print(f"[kernel A, runtime r] forced at r=6, L={L or 1}: flags identical to the templated "
+              f"instance ({int(s_a.sum())}/{s_a.numel()} stable), err_sq max abs diff "
+              f"{float((e_a[ok] - e_t[ok]).abs().max()):.3e}", flush=True)
+    return out
+
+
+def cahbn_any_phase():
+    """Phase 4b: kernel B's runtime-(r, nu) kernel against its plain version
+    at r = 9 and 12 with nu = 2 (the ex3 input family) and r = 6 with nu = 3,
+    k = 80 with the error term; at r = 9 also k = 40 without it, and with
+    it nd = 7 and ex3's L = 5 trajectories in one launch. Returns the JSON fields of each
+    (r, nu), from its k = 80 error-tracking call."""
+    from gp_bayesopinf_torch.ops import cahbn_screen as cs
+    from gp_bayesopinf_torch.pipeline.configs import HeatMultiConfig
+
+    rng = np.random.default_rng(20261018)
+    f32 = torch.float32
+    out = {}
+    params = HeatMultiConfig().input_parameters
+    # (r, nu, G, nd, k, t_max, track_error, L)
+    # The edge cases at k = 40: the plain version's ~16 s a problem at k = 80
+    # would take 80 s for L = 5 alone.
+    cases = [(9, 2, 16, 20, 80, 1.0, True, 0), (12, 2, 16, 20, 80, 1.0, True, 0),
+             (6, 3, 16, 20, 80, 1.0, True, 0), (9, 2, 16, 20, 40, 2.0, False, 0),
+             (9, 2, 16, 7, 40, 1.0, True, 0), (9, 2, 16, 20, 40, 1.0, True, 5)]
+    for r, nu, G, nd, k, t_max, track, L in cases:
+        a = cahbn_case(G, nd, k, t_max, rng, track, r=r, nu=nu)
+        if L:
+            a = batched_case(a, L, rng, {"u_stages": lambda ell: ex3_inputs(params[ell],
+                                                                              a["t_eval"])})
+        f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
+        kw = dict(nd=nd, substeps=4, newton_iters=6, track_error=track)
+        s_k, e_k = cs.cahbn_ensemble_screen(*a.values(), **kw)
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        s_p, e_p, maxdev = cs._plain(*f.values(), nd, 4, 6, track)
+        stop.record()
+        torch.cuda.synchronize()
+        err = hold(f"B r={r} nu={nu}", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd, track,
+                   L > 0)
+        print(f"[kernel B, runtime r, nu] r={r} nu={nu} G={G} nd={nd} k={k} track_error={track} "
+              f"L={L or 1}: flags identical ({int(s_k.sum())}/{s_k.numel()} stable), err_sq max "
+              f"abs diff {err:.3e}", flush=True)
+        if (nd, k, L) != (20, 80, 0):
+            continue
+        ms = cuda_ms(lambda: cs.cahbn_ensemble_screen_cuda(*f.values(), **kw), 5)
+        # The runtime kernel stops integrating a draw once it turns NaN: the
+        # NaN-operator draws do no Newton work, so they are not counted.
+        nan_draws = int(torch.isnan(f["Ohat"]).flatten(1).any(dim=1).sum())
+        bound, by = bound_ms(cahbn_flops(G * nd - nan_draws, r, nu, k, 4, 6),
+                             screen_bytes(f.values(), G * nd, G))
+        out[(r, nu)] = dict(ms=ms, plain_ms=start.elapsed_time(stop), bound_ms=bound,
+                            bound_by=by, max_abs_err=err)
+        print(f"[kernel B, runtime r, nu] r={r} nu={nu} k=80 with error: kernel {ms:.3f} ms, "
+              f"plain {out[(r, nu)]['plain_ms']:.3f} ms (CUDA events; plain one run), bound "
+              f"{bound:.4f} ms ({by}); {1e6 * ms / ((k - 1) * 4 * 2 * 6):.1f} ns per Newton step",
+              flush=True)
+    return out
 
 
 def reset_launches():
@@ -715,6 +882,86 @@ def windowed_phase():
     assert res.ensemble_mean.shape == (8, 512) and np.isfinite(res.ensemble_mean).all()
 
 
+def wide_phase(argv, kernel, r):
+    """Phases 8b and 8c: a pipeline run whose search screens at a state
+    dimension above the templated instances, so through the runtime
+    kernel; two launches per objective evaluation for all trajectories,
+    and a sound ensemble. Returns the launches."""
+    from gp_bayesopinf_torch.pipeline import ensemble_error, ensemble_errors
+
+    res, wall, launches, evals = run_counted(argv, kernel)
+    name = " ".join(argv[:6])
+    print(f"[{name}] wall {wall:.2f} s; stages (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
+    if argv[0] == "heat":
+        n_valid = res.valid.sum(dim=1).tolist()
+        errs, err_new = ensemble_errors(res)
+        err = max(errs + [err_new])
+        valid_new = int(res.newparam_valid.sum())
+        print(f"[{name}] lambda {res.regularizer:.6e}, valid {n_valid} of 600 per trajectory, "
+              f"{valid_new}/600 at the test parameters; ensemble-mean errors vs compressed truth "
+              f"{[round(e, 4) for e in errs]}, test {err_new:.4f}; kernel B launches {launches} "
+              f"in {evals} objective evaluations", flush=True)
+        assert bool(torch.isfinite(res.newparam_draws[res.newparam_valid]).all())
+    else:
+        n_valid = [int(res.valid.sum())]
+        err = ensemble_error(res)
+        print(f"[{name}] lambda {res.regularizer:.6e}, valid {n_valid[0]}/600, ensemble-mean "
+              f"error vs compressed truth {err:.4f}; kernel A launches {launches} in {evals} "
+              "objective evaluations", flush=True)
+    assert res.draws_compressed.shape[-2] == r, res.draws_compressed.shape
+    assert launches >= 12 and launches == 2 * evals, f"{launches} launches in {evals} evaluations"
+    assert math.isfinite(res.regularizer) and res.regularizer > 0
+    assert min(n_valid) > 0, f"valid draws {n_valid}"
+    assert bool(torch.isfinite(res.draws_compressed[res.valid]).all())
+    assert math.isfinite(err), f"ensemble-mean error {err}"
+    return launches
+
+
+def local_phase():
+    """Phase 10b: local window bases at the reference's production width
+    (``SCALED_LOCAL``): eight finite positive regularizers, every window
+    basis orthonormal, the boundary transfer of a window's end state equal
+    to the full-space map, and finite window and chained errors."""
+    from gp_bayesopinf_torch.pipeline import cli
+    from gp_bayesopinf_torch.pipeline.scaled.search import transfer_maps
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cli.run(SCALED_LOCAL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"[scaled, 8 local windows] wall {wall:.2f} s; stages (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
+    lams = res.window_regularizers
+    print(f"[scaled, 8 local windows] window regularizers {lams.tolist()}, stable fraction "
+          f"{res.stable_fraction:.4f}; errors: window (anchored) {res.window_error:.4f}, mean "
+          f"handoff {res.chained_error_mean:.4f}, draw-wise {res.chained_error_draws:.4f} (the "
+          "JAX package's window error at this configuration with 10,000 snapshots: 0.643, "
+          "BASELINE.md); kernel "
+          f"launches {read_launches()} (no TPU kernel on this path)", flush=True)
+    assert lams.shape == (8,) and np.isfinite(lams).all() and (lams > 0).all(), lams
+    assert all(math.isfinite(e) for e in (res.window_error, res.chained_error_mean,
+                                          res.chained_error_draws))
+    B = torch.as_tensor(res.window_bases, device="cuda").double()  # (8, 6000, 12)
+    mu = torch.as_tensor(res.window_means, device="cuda").double()
+    eye = torch.eye(12, dtype=torch.float64, device="cuda")
+    orth = float((B.transpose(1, 2) @ B - eye).abs().amax())
+    assert B.shape == (8, 6000, 12) and orth < 1e-5, orth
+    # Window 0's anchored ensemble-mean end state, crossed into window 1.
+    T, b = transfer_maps(B, mu)
+    mw = res.ensemble_mean.shape[1] // 8
+    q = torch.as_tensor(res.ensemble_mean[:, mw - 1], dtype=torch.float64, device="cuda")
+    full = B[1].T @ (mu[0] + B[0] @ q - mu[1])
+    moved = T[0] @ q + b[0]
+    gap = float((moved - full).abs().max() / full.abs().max())
+    print(f"[scaled, 8 local windows] bases orthonormal to {orth:.2e}; window 0's end state "
+          f"through T_0, b_0 against the full-space map: {gap:.2e} relative", flush=True)
+    assert gap < 1e-10, gap
+    assert not any(read_launches().values())
+    return wall
+
+
 def trace_names(path):
     """(names of the kernel events, set of the user ranges' names) of a
     Chrome trace by ``profile_trace``. The trace of a SEIRD run is ~1 GB:
@@ -841,7 +1088,8 @@ def checkpoint_phase():
     runs, walls = [], []
     for _ in range(2):
         t0 = time.perf_counter()
-        runs.append(cli.run(SCALED + ["--checkpoint-dir", ckpt]))
+        # m' cut to 512 (from 2048): the refinement's steps set the wall.
+        runs.append(cli.run(SCALED + ["--mprime", "512", "--checkpoint-dir", ckpt]))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     first, second = runs
@@ -888,16 +1136,25 @@ def main() -> int:
         print(f"[phase] {label}: {time.perf_counter() - t1:.1f} s", flush=True)
         return out
 
-    fields = {"quadratic_ensemble_screen": phase("kernel A", kernel_phase),
-              "cahbn_ensemble_screen": phase("kernel B", cahbn_phase)}
+    fields = {"quadratic_ensemble_screen": phase("kernel A", kernel_phase)}
+    wide_a = phase("kernel A, runtime r", any_r_phase)
+    fields["cahbn_ensemble_screen"] = phase("kernel B", cahbn_phase)
+    wide_b = phase("kernel B, runtime r and nu", cahbn_any_phase)
     fields["quadratic_ensemble_screen"]["launches"] = phase("ex1a", pipeline_phase)
     fields["cahbn_ensemble_screen"]["launches"] = phase("ex3", heat_phase)
     # Kernel A carries several main paths: its launches are those of all runs.
     seird_launches, seird_res = phase("seird", seird_phase)
     by_path = {"ex1a": fields["quadratic_ensemble_screen"]["launches"], "seird": seird_launches,
                "ex1c": phase("ex1c", ex1c_phase)}
+    # The runtime-dimension kernels' main paths: the two searches above the
+    # templated instances.
+    wide_launches = {"quadratic_ensemble_screen": phase(
+        "euler r=16", wide_phase, EULER16, "quadratic_ensemble_screen", 16)}
+    wide_launches["cahbn_ensemble_screen"] = phase(
+        "heat r=9", wide_phase, HEAT9, "cahbn_ensemble_screen", 9)
     phase("scaled", scaled_phase)
     phase("scaled, 4 windows", windowed_phase)
+    phase("scaled, 8 local windows", local_phase)
     by_path["serve"] = phase("serve", serve_phase, seird_res, seird_launches)
     del seird_res
     phase("checkpoint", checkpoint_phase)
@@ -914,14 +1171,27 @@ def main() -> int:
                 "library_ms": None, **more}
 
     A, B = fields["quadratic_ensemble_screen"], fields["cahbn_ensemble_screen"]
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("quadratic_ensemble_screen", A, shape="ex1a: G 16, nd 20, r 6, k 400, error term",
               launches_by_path=by_path, seird=A["seird"]),
         entry("cahbn_ensemble_screen", B, shape="ex3: G 16, nd 20, r 5, nu 2, k 80, error term"),
         # The same kernel at the ex1c estimation grid, with that run's launches.
         entry("quadratic_ensemble_screen", dict(A["ex1c"], launches=by_path["ex1c"]),
               shape="ex1c: G 16, nd 20, r 6, k 3200, error term"),
-    ]}), flush=True)
+    ]
+    # The runtime-dimension kernels, each shape with the launches of its
+    # family's main path (euler ... 400 16 for A, heat ... 80 9 for B).
+    launches_a, launches_b = (wide_launches[k] for k in KERNELS)
+    kernels += [entry("quadratic_ensemble_screen", dict(f, launches=launches_a),
+                      family="runtime r", shape=f"G 16, nd 20, r {r}, k 400, error term",
+                      launches_path="euler 0.06 200 0.03 400 16, at r 16")
+                for r, f in wide_a.items()]
+    kernels += [entry("cahbn_ensemble_screen", dict(f, launches=launches_b),
+                      family="runtime r and nu",
+                      shape=f"G 16, nd 20, r {r}, nu {nu}, k 80, error term",
+                      launches_path="heat 1.0 20 0.05 80 9, at r 9 and nu 2")
+                for (r, nu), f in wide_b.items()]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -56,6 +56,20 @@
 // warps: no atomics, the same bits every run. Everything is float32, the
 // screening contract; nvcc's multiply-add contraction makes the results
 // differ from the CPU in the last bits.
+//
+// Above r = 8 or nu = 2 the row and the all-gathered Newton matrix no
+// longer fit in registers, and r and nu are launch arguments of a second
+// kernel, cahbn_screen_any_kernel (the runtime-dimension layout of
+// screen_common.cuh): one draw per warp, lane i owning rows i, i + 32,
+// ...; the state, the stage slopes, the Newton iterate, its residual and
+// step and the r x r Newton matrix (1 KB at r = 16) live in shared
+// memory, and the operator is staged there transposed where it fits.
+// Each lane assembles its rows of I - h gamma J column by column, in the
+// order of newton_row; the forward elimination updates the rows below a
+// pivot in parallel, each entry in the order of eliminate, and lane 0
+// runs the back substitution (IEEE divisions, div_rn). A draw whose state
+// turns NaN reports NaN to the end without integrating further, as the
+// templated kernel's retired draws do.
 
 #include "screen_common.cuh"
 
@@ -336,31 +350,229 @@ int launch_r(int r, const float* Ohat, const float* q0, const float* t_eval,
   }
 }
 
+// Row i of rhs(x, u) at run-time (r, nu), in the order of rhs_row.
+__device__ __forceinline__ float rhs_any(const OpView& op, int i, const float* x,
+                                         const float* __restrict__ u, int r, int nu) {
+  const int kB = 1 + r + r * (r + 1) / 2;
+  const int kN = kB + nu;
+  float acc = op(i, 0);
+  for (int a = 0; a < r; ++a) acc += op(i, 1 + a) * x[a];
+  int z = 1 + r;
+  for (int a = 0; a < r; ++a) {
+    const float xa = x[a];
+    for (int b = 0; b <= a; ++b, ++z) acc += op(i, z) * (xa * x[b]);
+  }
+  for (int e = 0; e < nu; ++e) {
+    const float ue = __ldg(u + e);
+    acc += op(i, kB + e) * ue;
+    for (int a = 0; a < r; ++a) acc += op(i, kN + e * r + a) * (ue * x[a]);
+  }
+  return acc;
+}
+
+// Row i of M = I - hg J(x, u) into m[0..r), each column summed in the
+// order of newton_row: A[i, j], then the quadratic features that hold x_j
+// (the pairs (j, b) for b <= j, the pair (j, j) twice, then (a, j) for a >
+// j), then the input columns.
+__device__ __forceinline__ void newton_row_any(const OpView& op, int i, const float* x,
+                                               const float* __restrict__ u, float hg, int r,
+                                               int nu, float* m) {
+  const int kH = 1 + r;
+  const int kN = kH + r * (r + 1) / 2 + nu;
+  for (int j = 0; j < r; ++j) {
+    float col = op(i, 1 + j);
+    const int zj = kH + j * (j + 1) / 2;
+    for (int b = 0; b <= j; ++b) col += op(i, zj + b) * x[b];
+    col += op(i, zj + j) * x[j];
+    for (int a = j + 1; a < r; ++a) col += op(i, kH + a * (a + 1) / 2 + j) * x[a];
+    for (int e = 0; e < nu; ++e) col += op(i, kN + e * r + j) * __ldg(u + e);
+    m[j] = (i == j ? 1.f : 0.f) - hg * col;
+  }
+}
+
+// Solve M dk = F (M rows of stride ms, F and dk in shared memory) in the
+// operation order of eliminate; M and F are overwritten.
+__device__ __forceinline__ void eliminate_any(float* M, int ms, float* F, float* dk, int r) {
+  const int lane = threadIdx.x;
+  for (int p = 0; p < r; ++p) {
+    const float inv = 1.f / M[p * ms + p];
+    for (int i = lane; i < r; i += 32) {
+      if (i <= p) continue;
+      const float f = M[i * ms + p] * inv;
+      for (int j = p + 1; j < r; ++j) M[i * ms + j] = M[i * ms + j] - f * M[p * ms + j];
+      F[i] = F[i] - f * F[p];
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    for (int i = r - 1; i >= 0; --i) {
+      float acc = F[i];
+      for (int j = i + 1; j < r; ++j) acc = acc - M[i * ms + j] * dk[j];
+      dk[i] = div_rn(acc, M[i * ms + i]);
+    }
+  }
+  __syncwarp();
+}
+
+// Shared scratch of the runtime kernel: nine r-vectors, then the Newton
+// matrix (rows of odd stride ms, so that the lanes' rows fall in distinct
+// banks), then the staged operator.
+struct AnyScratch {
+  float *q, *k1, *k2, *base, *x, *F, *dk, *maxdev, *sh, *M, *op;
+  int ms;
+  __device__ AnyScratch(float* smem, int r)
+      : q(smem), k1(q + r), k2(k1 + r), base(k2 + r), x(base + r), F(x + r), dk(F + r),
+        maxdev(dk + r), sh(maxdev + r), M(sh + r), op(M + r * (r | 1)), ms(r | 1) {}
+};
+
+// Newton-solve kk = rhs(q_base + hg kk, u) from the initial guess in kk.
+__device__ __forceinline__ void solve_stage_any(const OpView& op, const AnyScratch& w,
+                                                const float* __restrict__ u, const float* q_base,
+                                                float hg, int newton_iters, float* kk, int r,
+                                                int nu) {
+  const int lane = threadIdx.x;
+  for (int it = 0; it < newton_iters; ++it) {
+    for (int i = lane; i < r; i += 32) w.x[i] = q_base[i] + hg * kk[i];
+    __syncwarp();
+    for (int i = lane; i < r; i += 32) {
+      w.F[i] = kk[i] - rhs_any(op, i, w.x, u, r, nu);
+      newton_row_any(op, i, w.x, u, hg, r, nu, w.M + i * w.ms);
+    }
+    __syncwarp();
+    eliminate_any(w.M, w.ms, w.F, w.dk, r);
+    for (int i = lane; i < r; i += 32) kk[i] = kk[i] - w.dk[i];
+    __syncwarp();
+  }
+}
+
+// The runtime-(r, nu) kernel: block (n, l) integrates draw n of problem l.
+__global__ void __launch_bounds__(32)
+cahbn_screen_any_kernel(const float* __restrict__ Ohat,      // (N, r, d)
+                        const float* __restrict__ q0,        // (L, r)
+                        const float* __restrict__ t_eval,    // (k,)
+                        const float* __restrict__ u_stages,  // (L, (k-1) substeps 3, nu)
+                        const float* __restrict__ shift,     // (L, r)
+                        const float* __restrict__ limits,    // (L, r)
+                        int r, int nu, int d, int N, int k, int substeps, int newton_iters,
+                        bool staged,
+                        bool* __restrict__ stable,           // (L, N)
+                        float* __restrict__ partial) {       // (L, N, k, r) or null
+  extern __shared__ float smem[];
+  const AnyScratch w(smem, r);
+  const int lane = threadIdx.x;
+  const int n = blockIdx.x;
+  const int l = blockIdx.y;
+  const OpView op = stage_operator(Ohat, n, r, d, staged, w.op);
+  const float* u_p = u_stages + static_cast<size_t>(l) * (k - 1) * substeps * 3 * nu;
+  float* part = partial == nullptr ? nullptr
+                                   : partial + (static_cast<size_t>(l) * N + n) * k * r;
+  for (int i = lane; i < r; i += 32) {
+    w.q[i] = q0[l * r + i];
+    w.sh[i] = shift[l * r + i];
+    w.maxdev[i] = fabsf(w.q[i] - w.sh[i]);
+    if (part != nullptr) part[i] = w.q[i];
+  }
+  __syncwarp();
+
+  for (int s = 1; s < k; ++s) {
+    const float h = (t_eval[s] - t_eval[s - 1]) / static_cast<float>(substeps);
+    const float hg = h * kGamma;
+    const float h1 = h * kOneMinusGamma;
+    for (int sub = 0; sub < substeps; ++sub) {
+      const float* u0 = u_p + static_cast<size_t>((s - 1) * substeps + sub) * 3 * nu;
+      for (int i = lane; i < r; i += 32) w.k1[i] = rhs_any(op, i, w.q, u0, r, nu);
+      __syncwarp();
+      solve_stage_any(op, w, u0 + nu, w.q, hg, newton_iters, w.k1, r, nu);
+      for (int i = lane; i < r; i += 32) {
+        w.base[i] = w.q[i] + h1 * w.k1[i];
+        w.k2[i] = w.k1[i];
+      }
+      __syncwarp();
+      solve_stage_any(op, w, u0 + 2 * nu, w.base, hg, newton_iters, w.k2, r, nu);
+      for (int i = lane; i < r; i += 32)
+        w.q[i] = clip_keep_nan(w.q[i] + h * (kOneMinusGamma * w.k1[i] + kGamma * w.k2[i]));
+      __syncwarp();
+    }
+    bool nan_now = false;
+    for (int i = lane; i < r; i += 32) {
+      w.maxdev[i] = max_keep_nan(w.maxdev[i], fabsf(w.q[i] - w.sh[i]));
+      if (part != nullptr) part[static_cast<size_t>(s) * r + i] = w.q[i];
+      nan_now = nan_now || isnan(w.q[i]);
+    }
+    // A NaN reaches every row of the next right-hand side and stays: the
+    // draw reports NaN from here on.
+    if (__any_sync(kFullMask, nan_now)) {
+      const float nan = __int_as_float(0x7fc00000);
+      for (int i = lane; i < r; i += 32) {
+        w.maxdev[i] = nan;
+        if (part != nullptr)
+          for (int t = s + 1; t < k; ++t) part[static_cast<size_t>(t) * r + i] = nan;
+      }
+      break;
+    }
+  }
+
+  bool ok = true;
+  for (int i = lane; i < r; i += 32)
+    ok = ok && (w.maxdev[i] <= limits[l * r + i]) && isfinite(w.maxdev[i]);
+  ok = __all_sync(kFullMask, ok);
+  if (lane == 0) stable[static_cast<size_t>(l) * N + n] = ok;
+}
+
+cudaError_t launch_any(const float* Ohat, const float* q0, const float* t_eval,
+                       const float* u_stages, const float* shift, const float* limits, int L,
+                       int N, int r, int nu, int k, int substeps, int newton_iters,
+                       bool* stable, float* partial, cudaStream_t stream) {
+  const int d = 1 + r + r * (r + 1) / 2 + nu + nu * r;
+  bool staged;
+  const size_t bytes = any_r_shared_bytes(r, d, 9, r * (r | 1), &staged);
+  if (bytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        cahbn_screen_any_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (rc != cudaSuccess) return rc;
+  }
+  cahbn_screen_any_kernel<<<dim3(N, L), 32, bytes, stream>>>(
+      Ohat, q0, t_eval, u_stages, shift, limits, r, nu, d, N, k, substeps, newton_iters, staged,
+      stable, partial);
+  return cudaGetLastError();
+}
+
+// Instances r 1..8 with nu 1..2; anything above goes to the runtime kernel.
+constexpr int kTemplatedMaxR = 8;  // the reference's SMALL_SOLVE_MAX
+constexpr int kTemplatedMaxNu = 2;
+
 }  // namespace
 
 // Screens L problems in one launch. `partial` is scratch of L * G * W * k
-// * r floats, W = warps_per_candidate(r, nd) (the wrapper passes W, and
-// it is checked); with `snaps` (L, r, k) non-null the draw means' squared
-// errors go to err_sq (L, G), else partial and err_sq are not touched.
-// Returns 0 on success, a cudaError_t code if a launch failed, and -1 for
-// a state dimension r (1..8) or input dimension nu (1..2) that has no
-// compiled instance.
+// * r floats, W = warps_per_candidate(r, nd) for the templated instances
+// (r <= 8 and nu <= 2) and W = nd for the runtime kernel (the wrapper
+// passes W, and it is checked); with `snaps` (L, r, k) non-null the draw
+// means' squared errors go to err_sq (L, G), else partial and err_sq are
+// not touched. Returns 0 on success, a cudaError_t code if a launch
+// failed, and -1 for r < 1 or nu < 1.
 extern "C" int gpboi_cahbn_screen(const float* Ohat, const float* q0, const float* t_eval,
                                   const float* u_stages, const float* shift,
                                   const float* limits, const float* snaps, int L, int N, int r,
                                   int nu, int nd, int W, int k, int substeps, int newton_iters,
                                   bool* stable, float* partial, float* err_sq, void* stream) {
-  if (r < 1 || r > 8 || nu < 1 || nu > 2) return -1;
+  if (r < 1 || nu < 1) return -1;
+  const bool any = r > kTemplatedMaxR || nu > kTemplatedMaxNu;
   if (L < 1 || L > 65535 || N < 1 || nd < 1 || nd > 32 || N % nd != 0 || k < 1 ||
-      substeps < 1 || newton_iters < 0 || W != warps_per_candidate(r, nd) ||
+      substeps < 1 || newton_iters < 0 || W != (any ? nd : warps_per_candidate(r, nd)) ||
       (snaps != nullptr && (partial == nullptr || err_sq == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = snaps != nullptr ? partial : nullptr;
-  const int rc = nu == 1 ? launch_r<1>(r, Ohat, q0, t_eval, u_stages, shift, limits, L, N, nd,
-                                       W, k, substeps, newton_iters, stable, part, s)
-                         : launch_r<2>(r, Ohat, q0, t_eval, u_stages, shift, limits, L, N, nd,
-                                       W, k, substeps, newton_iters, stable, part, s);
+  int rc;
+  if (any)
+    rc = static_cast<int>(launch_any(Ohat, q0, t_eval, u_stages, shift, limits, L, N, r, nu, k,
+                                     substeps, newton_iters, stable, part, s));
+  else
+    rc = nu == 1 ? launch_r<1>(r, Ohat, q0, t_eval, u_stages, shift, limits, L, N, nd, W, k,
+                               substeps, newton_iters, stable, part, s)
+                 : launch_r<2>(r, Ohat, q0, t_eval, u_stages, shift, limits, L, N, nd, W, k,
+                               substeps, newton_iters, stable, part, s);
   if (rc != 0 || snaps == nullptr) return rc;
   mean_error_kernel<<<dim3(N / nd, L), 32, 0, s>>>(partial, snaps, r, N / nd, W, k, nd, err_sq);
   return static_cast<int>(cudaGetLastError());

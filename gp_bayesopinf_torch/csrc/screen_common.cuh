@@ -2,14 +2,16 @@
 // (quadratic_screen.cu, cahbn_screen.cu). Each kernel source includes
 // this header once; everything here has internal linkage.
 //
-// The row-parallel layout both kernels use: a draw of an r-state ROM
-// takes a group of kLanes = (the power of two >= r) lanes of a warp, lane
-// i of the group owning row i of the draw's operator. A warp holds
-// 32 / kLanes draws; a candidate's nd draws take W = ceil(nd / (32 /
+// Two layouts. The templated instances of both kernels (r a template
+// parameter, the operator row in registers) are row-parallel: a draw of an
+// r-state ROM takes a group of kLanes = (the power of two >= r) lanes of a
+// warp, lane i of the group owning row i of the draw's operator. A warp
+// holds 32 / kLanes draws; a candidate's nd draws take W = ceil(nd / (32 /
 // kLanes)) warps, one block of one warp each, so the warps of a launch
 // spread over the SMs. Block (g W + w, l) is warp w of candidate g of
 // problem (trajectory) l. Lanes at or above r in a group, and groups past
 // the candidate's nd draws, take part in every shuffle and write nothing.
+// The runtime-dimension kernels take one warp per draw (below).
 
 #pragma once
 
@@ -46,9 +48,53 @@ struct Rows {
   static constexpr int kDrawsPerWarp = 32 / kLanes;
 };
 
-// Warps per candidate of nd draws; the wrapper sizes its scratch by it.
+// Warps per candidate of nd draws in the templated instances' layout;
+// the wrapper sizes its scratch by it.
 __host__ __device__ constexpr int warps_per_candidate(int r, int nd) {
   return (nd + 32 / lanes_per_draw(r) - 1) / (32 / lanes_per_draw(r));
+}
+
+// ---------------------------------------------------------------------------
+// The runtime-dimension layout (the "any r" kernels of quadratic_screen.cu
+// and cahbn_screen.cu, for the state and input dimensions above the
+// templated instances): one draw per warp, so a candidate's nd draws take
+// nd warps, one block of one warp each; block (g nd + w, l) is draw w of
+// candidate g of problem l. Lane i owns rows i, i + 32, ...; the draw's
+// vectors live in the block's shared memory, and the operator too where it
+// fits there (transposed, so that the lanes' reads of one column hit
+// consecutive words), else it is read from device memory.
+
+constexpr int kMaxDynamicShared = 232448;  // 227 KB, a block's most on sm_90
+
+// A draw's (r, d) operator: entry (i, j) at p[i si + j sj].
+struct OpView {
+  const float* p;
+  int si, sj;
+  __device__ __forceinline__ float operator()(int i, int j) const { return p[i * si + j * sj]; }
+};
+
+// Bytes of dynamic shared memory for `vectors` r-vectors plus `extra`
+// floats, with the (r, d) operator staged when it fits; sets `staged`.
+__host__ inline size_t any_r_shared_bytes(int r, int d, int vectors, int extra, bool* staged) {
+  const size_t base = (static_cast<size_t>(vectors) * r + extra) * sizeof(float);
+  const size_t with_op = base + static_cast<size_t>(r) * d * sizeof(float);
+  *staged = with_op <= static_cast<size_t>(kMaxDynamicShared);
+  return *staged ? with_op : base;
+}
+
+// Draw n's operator, copied into shared memory at `dst` transposed (entry
+// (i, j) at dst[j r + i]) when `staged`, else viewed in device memory.
+// The copy reads the draw's r d floats in order (coalesced); the caller
+// synchronizes the warp before the first read.
+__device__ __forceinline__ OpView stage_operator(const float* __restrict__ Ohat, size_t n,
+                                                 int r, int d, bool staged, float* dst) {
+  const float* src = Ohat + n * r * d;
+  if (!staged) return OpView{src, d, 1};
+  for (int e = threadIdx.x; e < r * d; e += 32) {
+    const int i = e / d;
+    dst[(e - i * d) * r + i] = __ldg(src + e);
+  }
+  return OpView{dst, 1, r};
 }
 
 // Where a thread sits in the screen grid.

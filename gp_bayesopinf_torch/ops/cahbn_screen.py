@@ -23,7 +23,9 @@ Two implementations with one contract, both float32:
 
 * ``cahbn_ensemble_screen_cuda``: the hand-written Hopper kernel
   ``csrc/cahbn_screen.cu`` (see its header for the design), all L
-  problems in one launch;
+  problems in one launch: templated instances up to
+  ``TEMPLATED_MAX_STATE`` modes and ``TEMPLATED_MAX_INPUT`` inputs, a
+  kernel that takes r and nu at run time beyond;
 * ``cahbn_ensemble_screen_torch``: the plain PyTorch version, batched
   (N, r) states with the XLA twin's algorithm, one problem after another.
 
@@ -49,8 +51,11 @@ from .ensemble_screen import (
 from .quadratic import ckron_indices, ckron_jacobian_pattern
 from ..solve.ivp import GAMMA, solve_small
 
-MAX_STATE_DIMENSION = 8  # the reference's SMALL_SOLVE_MAX; kernel instances 1..8
-MAX_INPUT_DIMENSION = 2  # kernel instances nu = 1, 2
+#: The largest r and nu of kernel B's templated instances (the row and the
+#: Newton matrix in registers; r up to the reference's SMALL_SOLVE_MAX);
+#: beyond either the runtime-(r, nu) kernel screens.
+TEMPLATED_MAX_STATE = 8
+TEMPLATED_MAX_INPUT = 2
 
 #: Kernel launches made by ``cahbn_ensemble_screen_cuda`` in this process.
 #: Callers may reset it to 0 to count the launches of one run.
@@ -184,9 +189,9 @@ def cahbn_ensemble_screen_cuda(
     dev = Ohat.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA screen needs CUDA tensors, got {dev}")
-    if Ohat.ndim != 3 or u_stages.ndim not in (2, 3):
-        raise ValueError(f"Ohat must be (N, r, d) and u_stages (n, nu) or (L, n, nu), got "
-                         f"{tuple(Ohat.shape)} and {tuple(u_stages.shape)}")
+    if Ohat.ndim != 3 or u_stages.ndim not in (2, 3) or 0 in (Ohat.shape[1], u_stages.shape[-1]):
+        raise ValueError(f"Ohat must be (N, r, d) and u_stages (n, nu) or (L, n, nu) with r and "
+                         f"nu >= 1, got {tuple(Ohat.shape)} and {tuple(u_stages.shape)}")
     N, r, d = Ohat.shape
     nu = u_stages.shape[-1]
     k = t_eval.shape[0]
@@ -213,7 +218,8 @@ def cahbn_ensemble_screen_cuda(
         tensors["snapshots"] = (snapshots, lead + (r, k))
     check_tensors(tensors, dev)
 
-    n_prob, G, W = L or 1, N // nd, warps_per_candidate(r, nd)
+    templated = r <= TEMPLATED_MAX_STATE and nu <= TEMPLATED_MAX_INPUT
+    n_prob, G, W = L or 1, N // nd, warps_per_candidate(r, nd, templated)
     stable = torch.empty((n_prob, N), dtype=torch.bool, device=dev)
     err_sq = torch.zeros((n_prob, G), dtype=torch.float32, device=dev)
     partial = torch.empty(n_prob * G * W * k * r if track else 0, dtype=torch.float32, device=dev)
@@ -226,13 +232,8 @@ def cahbn_ensemble_screen_cuda(
             partial.data_ptr() if track else None, err_sq.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if rc == -1:
-        raise ValueError(
-            f"the CUDA screen has no instance for r={r}, nu={nu} "
-            f"(r 1..{MAX_STATE_DIMENSION}, nu 1..{MAX_INPUT_DIMENSION})"
-        )
     if rc != 0:
-        raise RuntimeError(f"cahbn_screen launch failed: CUDA error {rc}")
+        raise RuntimeError(f"cahbn_screen launch failed: error {rc}")
     launches += 1
     return (stable[0], err_sq[0]) if L is None else (stable, err_sq)
 

@@ -21,7 +21,8 @@ contract; posteriors and final ensembles stay float64):
 
 * ``quadratic_ensemble_screen_cuda``: the hand-written Hopper kernel
   ``csrc/quadratic_screen.cu`` (see its header for the design), all L
-  problems in one launch;
+  problems in one launch: templated instances up to
+  ``TEMPLATED_MAX_STATE`` modes, a kernel that takes r at run time above;
 * ``quadratic_ensemble_screen_torch``: the plain PyTorch version, a
   batched (N, r) RK4 with a feature concat and an einsum, one problem
   after another.
@@ -41,16 +42,23 @@ from .quadratic import ckron_indices
 
 DIVERGE_CAP = 1e6  # must dominate any stability envelope
 MAX_DRAWS_PER_CANDIDATE = 32  # the kernels' limit, as the reference's
+#: The largest r of kernel A's templated instances (the row in registers);
+#: above it the runtime-r kernel screens.
+TEMPLATED_MAX_STATE = 12
 
 #: Kernel launches made by ``quadratic_ensemble_screen_cuda`` in this
 #: process. Callers may reset it to 0 to count the launches of one run.
 launches = 0
 
 
-def warps_per_candidate(r: int, nd: int) -> int:
-    """Warps that a candidate's nd draws take in the kernels' layout
-    (``csrc/screen_common.cuh``): each draw takes the power of two >= r
-    lanes, one per operator row (r above 16 has no kernel instance)."""
+def warps_per_candidate(r: int, nd: int, templated: bool = True) -> int:
+    """Warps that a candidate's nd draws take in the kernels' layouts
+    (``csrc/screen_common.cuh``). The templated instances give each draw
+    the power of two >= r lanes, one per operator row, several draws to a
+    warp; the runtime-dimension kernels give each draw a warp of its own,
+    so the count is nd."""
+    if not templated:
+        return nd
     lanes = 1 << (r - 1).bit_length()
     return -(-nd // max(32 // lanes, 1))
 
@@ -160,26 +168,30 @@ def _library() -> ctypes.CDLL:
     from .build import load_library
 
     lib = load_library("quadratic_screen")
-    fn = lib.gpboi_quadratic_screen
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
+    for fn in (lib.gpboi_quadratic_screen, lib.gpboi_quadratic_screen_any_r):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
+        fn.restype = ctypes.c_int
     return lib
 
 
 def quadratic_ensemble_screen_cuda(
     Ohat, q0, t_eval, shift, limits, snapshots=None, nd: int = 20,
-    substeps: int = 4, track_error: bool = True,
+    substeps: int = 4, track_error: bool = True, any_r: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Hopper kernel; same arguments and results as
     ``quadratic_ensemble_screen``, but every tensor must be a contiguous
     float32 tensor on one CUDA device. One launch for all problems.
-    Raises on anything the kernel does not take and on a failed launch."""
+    Raises on anything the kernel does not take and on a failed launch.
+
+    ``any_r`` takes the runtime-r kernel at every r, which otherwise
+    screens only above ``TEMPLATED_MAX_STATE``: ``chip_smoke.py`` holds
+    it against the templated instances with it."""
     global launches
     dev = Ohat.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA screen needs CUDA tensors, got {dev}")
-    if Ohat.ndim != 3:
-        raise ValueError(f"Ohat must be (N, r, d), got {tuple(Ohat.shape)}")
+    if Ohat.ndim != 3 or Ohat.shape[1] < 1:
+        raise ValueError(f"Ohat must be (N, r, d) with r >= 1, got {tuple(Ohat.shape)}")
     N, r, d = Ohat.shape
     k = t_eval.shape[0]
     if d != 1 + r + r * (r + 1) // 2:
@@ -202,23 +214,23 @@ def quadratic_ensemble_screen_cuda(
         tensors["snapshots"] = (snapshots, lead + (r, k))
     check_tensors(tensors, dev)
 
-    n_prob, G, W = L or 1, N // nd, warps_per_candidate(r, nd)
+    any_r = any_r or r > TEMPLATED_MAX_STATE
+    n_prob, G, W = L or 1, N // nd, warps_per_candidate(r, nd, templated=not any_r)
     stable = torch.empty((n_prob, N), dtype=torch.bool, device=dev)
     err_sq = torch.zeros((n_prob, G), dtype=torch.float32, device=dev)
     partial = torch.empty(n_prob * G * W * k * r if track else 0, dtype=torch.float32, device=dev)
     lib = _library()
+    screen = lib.gpboi_quadratic_screen_any_r if any_r else lib.gpboi_quadratic_screen
     with torch.cuda.device(dev):
-        rc = lib.gpboi_quadratic_screen(
+        rc = screen(
             Ohat.data_ptr(), q0.data_ptr(), t_eval.data_ptr(), shift.data_ptr(),
             limits.data_ptr(), snapshots.data_ptr() if track else None,
             n_prob, N, r, nd, W, k, substeps, stable.data_ptr(),
             partial.data_ptr() if track else None, err_sq.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if rc == -1:
-        raise ValueError(f"the CUDA screen has no instance for r={r} (1..12)")
     if rc != 0:
-        raise RuntimeError(f"quadratic_screen launch failed: CUDA error {rc}")
+        raise RuntimeError(f"quadratic_screen launch failed: error {rc}")
     launches += 1
     return (stable[0], err_sq[0]) if L is None else (stable, err_sq)
 

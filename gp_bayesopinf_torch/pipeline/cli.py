@@ -143,8 +143,8 @@ def _add_scaled(subs):
                      "propagation, ensemble-mean handoff, or GP re-anchoring")
     sub.add_argument("--window-basis", choices=("global", "local"), default="global",
                      dest="window_basis",
-                     help="W > 1: one POD basis of the full span, or a basis per window "
-                     "(local: not ported, raises)")
+                     help="W > 1: one POD basis of the full span, or a basis, GP fits and "
+                     "envelope per window (needs --k and --gp-samples divisible by W)")
     sub.add_argument("--weights", choices=("auto", "eigh", "chol", "lowrank"), default="auto",
                      dest="weight_method",
                      help="GP weight-root factorization (eigh and chol: the dense root, "

@@ -1,6 +1,7 @@
 """GP estimation and weighting of every (window, mode) row problem
 (counterpart of ``gp_bayesopinf_tpu/pipeline/scaled.py``,
-``_gp_estimate_windows`` and ``_weight_windows``).
+``_gp_estimate_windows``, ``_gp_estimate_windows_local`` and
+``_weight_windows``).
 
 Everything here is float64 on the device of the tensors given: what the
 JAX package computes in NumPy float64 on its host.
@@ -26,21 +27,34 @@ def gp_estimate_windows(ts, Y, sigma2, ell, chi, tw, weight_method: str):
     ``("chol", (W, r, mw, mw))``, the lower Cholesky factors of C + eta I,
     or ``("lowrank", roots)``, ``roots[w][i]`` a ``LowRankWeightRoot``.
     """
+    W = tw.shape[0]
+    return gp_estimate_windows_local(
+        ts.expand(W, -1), Y.expand(W, -1, -1), *(x.expand(W, -1) for x in (sigma2, ell, chi)),
+        tw, weight_method,
+    )
+
+
+def gp_estimate_windows_local(ts_w, Yw, sigma2, ell, chi, tw, weight_method: str):
+    """(W, r, mw) GP estimates for local window bases (counterpart of
+    ``_gp_estimate_windows_local``): window w's modes condition only on
+    window w's own samples ``ts_w[w]`` (W, m_w), ``Yw[w]`` (W, r, m_w) and
+    hyperparameters (W, r). Same returns as ``gp_estimate_windows``."""
     if weight_method not in ("chol", "lowrank"):
         raise ValueError(f"weight_method must be 'chol' or 'lowrank', got '{weight_method}'")
     f64 = torch.float64
-    Y, tw = Y.to(f64), tw.to(f64)
-    T = ts.to(f64).expand(Y.shape)
+    Yw, tw = Yw.to(f64), tw.to(f64)
     hyper = [x.to(f64) for x in (sigma2, ell, chi)]
     states, ddts, ctx = [], [], []
-    for t_w in tw:
+    for w, t_w in enumerate(tw):
+        T = ts_w[w].to(f64).expand(Yw[w].shape)
+        hyp = [x[w] for x in hyper]
         if weight_method == "lowrank":
-            ests = batched_lowrank_gp_estimates(T, Y, t_w, *hyper, eta=ETA)
+            ests = batched_lowrank_gp_estimates(T, Yw[w], t_w, *hyp, eta=ETA)
             states.append(torch.stack([e.state_estimate for e in ests]))
             ddts.append(torch.stack([e.ddt_estimate for e in ests]))
             ctx.append([e.root for e in ests])
         else:
-            est = batched_gp_estimates(T, Y, t_w, *hyper, ETA, method="chol")
+            est = batched_gp_estimates(T, Yw[w], t_w, *hyp, ETA, method="chol")
             if not bool(est.ok.all()):
                 bad = torch.nonzero(~est.ok).flatten().tolist()
                 raise ValueError(

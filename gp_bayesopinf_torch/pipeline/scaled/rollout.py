@@ -13,6 +13,11 @@ boundary; all three errors are recorded, and the caller's choice sets
 * draws: every posterior draw goes on from its own end state, and a draw
   that left the envelope inside a window restarts the next one from the
   stable draws' mean end state.
+
+With local window bases each window has its own envelope, and a state
+crossing a boundary goes into the next window's coordinates by the exact
+transfer q' = T_w q + b_w (``search.transfer_maps``); with one basis the
+transfer is the identity.
 """
 
 from typing import Tuple
@@ -45,9 +50,9 @@ def chain_mean(problem: WindowProblem, ohat: torch.Tensor) -> torch.Tensor:
     means = []
     for w in range(problem.tw.shape[0]):
         sols = rollout(problem.rom, ohat[:, w : w + 1], q[None], problem.tw[w : w + 1])[:, 0]
-        ok = stability_mask(sols, problem.shift, problem.limits)  # (n,)
+        ok = stability_mask(sols, *problem.envelope(w))  # (n,)
         means.append(_stable_mean(sols, ok))
-        q = means[-1][:, -1]
+        q = problem.hand_over(w, means[-1][:, -1])
     return torch.stack(means)
 
 
@@ -63,9 +68,9 @@ def chain_draws(problem: WindowProblem, ohat: torch.Tensor) -> Tuple[torch.Tenso
     means, fracs = [], []
     for w in range(problem.tw.shape[0]):
         sols = rollout(problem.rom, ohat[:, w : w + 1], qs[:, None], problem.tw[w : w + 1])[:, 0]
-        ok = stability_mask(sols, problem.shift, problem.limits)  # (n,)
+        ok = stability_mask(sols, *problem.envelope(w))  # (n,)
         mean = _stable_mean(sols, ok)
-        qs = torch.where(ok[:, None], sols[:, :, -1], mean[None, :, -1])
+        qs = problem.hand_over(w, torch.where(ok[:, None], sols[:, :, -1], mean[None, :, -1]))
         means.append(mean)
         fracs.append(ok.to(sols.dtype).mean())
     return torch.stack(means), float(torch.stack(fracs).mean())

@@ -6,7 +6,9 @@ a large spatial dimension: POD by a randomized range finder, one batched
 GP fit over the modes, GP estimation and weighting of every (window,
 mode) row problem, one TSQR factorization of them all, the windowed
 regularization search and the final ensembles. The global run is the W =
-1 case of the time-windowed machinery.
+1 case of the time-windowed machinery. With local window bases the front
+half runs once per window (its own POD, samples and GP fit) and the back
+half takes per-window envelopes and the boundary transfer between bases.
 
 Precision by stage: the snapshot matrix, the POD sketch and the
 compressed snapshots are float32 (the one large array and its tall
@@ -33,7 +35,7 @@ from ...utils import TimedBlock, resolve_device, stage_generators
 from ...utils.device import DeviceLike
 from . import rollout, search
 from .data import euler_states, synthetic_states
-from .estimate import gp_estimate_windows, weight_windows
+from .estimate import gp_estimate_windows, gp_estimate_windows_local, weight_windows
 
 #: The stages of a scaled run that draw random numbers.
 SCALED_STAGES = ("data", "pod", "sample", "fit", "search", "draws")
@@ -62,16 +64,22 @@ class ScaledResult:
     window_basis: str = "global"
     weight_method: str = "chol"  # as resolved: "chol" or "lowrank"
     weight_ranks: Optional[np.ndarray] = None  # (W, r) retained ranks, lowrank only
+    # The GP samples and fits; with local bases each carries a leading W.
     sample_times: Optional[np.ndarray] = None  # (m,) times of the GP samples
     samples: Optional[np.ndarray] = None  # (r, m) compressed GP samples
     hyperparameters: Optional[np.ndarray] = None  # (r, 3) fitted sigma^2, ell, chi
+    window_bases: Optional[np.ndarray] = None  # local: (W, n, r) float32 POD bases
+    window_means: Optional[np.ndarray] = None  # local: (W, n) float32 window centres
     stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
 class ScaledNormals:
     """Random numbers to use in place of the generators' (each optional):
-    the parity tests replay the JAX package's through them."""
+    the parity tests replay the JAX package's through them. With local
+    bases the sample indices, the sketch and the fit starts are per window:
+    (W, m/W) indices within each window's block of k/W snapshots, (W, k/W,
+    l) and (W, r, restarts + 1, 3)."""
 
     sample_idx: Optional[np.ndarray] = None  # (m,) sorted snapshot indices of the GP samples
     lift: Optional[torch.Tensor] = None  # (n, r) synthetic source
@@ -86,7 +94,7 @@ class ScaledNormals:
 
 def _check_arguments(
     regularization, modelform, tikhonov_gamma, time_windows, num_regression_points,
-    window_chaining, window_basis, mesh,
+    window_chaining, window_basis, mesh, n_snapshots, num_gp_samples,
 ):
     if regularization not in ("scalar", "blocked", "gamma"):
         raise ValueError(f"unknown regularization '{regularization}'")
@@ -108,10 +116,10 @@ def _check_arguments(
     if window_basis == "local":
         if time_windows < 2:
             raise ValueError("window_basis='local' requires time_windows > 1")
-        raise NotImplementedError(
-            "window_basis='local' (a POD basis, GP fits and envelope per window) is "
-            "not ported: ROADMAP queue 1, item 12"
-        )
+        if n_snapshots % time_windows:
+            raise ValueError("n_snapshots must divide into time_windows")
+        if num_gp_samples % time_windows:
+            raise ValueError("num_gp_samples must divide into time_windows")
     if mesh is not None:
         raise NotImplementedError(
             "mesh (more than one card) is not ported: ROADMAP queue 1, item 12"
@@ -124,6 +132,30 @@ def _normals(shape, given, generator, dtype, device):
     return torch.randn(shape, generator=generator, dtype=dtype, device=device)
 
 
+def _snapshots(stage, gens, given, dev, data_source, n_space, n_snapshots, r):
+    """The (n, k) float32 snapshot matrix of ``data_source``."""
+    with stage("data", "data generation"):
+        if data_source == "euler":
+            return euler_states(n_space, n_snapshots, device=dev, generator=gens["data"],
+                                noise_normals=given.noise)
+        if data_source == "synthetic":
+            return synthetic_states(n_space, n_snapshots, r, device=dev, generator=gens["data"],
+                                    lift_normals=given.lift, noise_normals=given.noise)
+        raise ValueError(f"unknown data_source '{data_source}'")
+
+
+def _fit(ts, Y, gens, n_restarts, z0):
+    """The batched GP fit of the rows of ``Y`` at the times ``ts``."""
+    # 32 restarts: 8 left ~10% of the modes in the all-noise optimum of the
+    # likelihood at the production scale.
+    box = BoxTransform.from_bounds(
+        (1e-5, 1e5), (1e-3, 1e2), (1e-10, 1e2), device=Y.device, dtype=torch.float64
+    )
+    return fit_gp_hyperparameters(
+        ts, Y, box, gens["fit"], n_restarts=n_restarts, adam_steps=150, polish_iters=30, z0=z0,
+    )
+
+
 def _compress_and_fit(
     stage, gens, given, dev, data_source, n_space, n_snapshots, r, num_gp_samples, n_restarts
 ):
@@ -131,15 +163,7 @@ def _compress_and_fit(
     fit. Returns (ts (m,) sample times, Y (r, m) compressed samples,
     svdvals, the fit), float64 from the samples on."""
     f64 = torch.float64
-    with stage("data", "data generation"):
-        if data_source == "euler":
-            states = euler_states(n_space, n_snapshots, device=dev, generator=gens["data"],
-                                  noise_normals=given.noise)
-        elif data_source == "synthetic":
-            states = synthetic_states(n_space, n_snapshots, r, device=dev, generator=gens["data"],
-                                      lift_normals=given.lift, noise_normals=given.noise)
-        else:
-            raise ValueError(f"unknown data_source '{data_source}'")
+    states = _snapshots(stage, gens, given, dev, data_source, n_space, n_snapshots, r)
 
     with stage("pod", "randomized POD"):
         centered = states - states.mean(dim=1, keepdim=True)
@@ -155,16 +179,68 @@ def _compress_and_fit(
     Y = compressed[:, torch.as_tensor(sample_idx, device=dev)].to(f64)  # (r, m)
 
     with stage("gp_fit", "GP fit"):
-        # 32 restarts: 8 left ~10% of the modes in the all-noise optimum
-        # of the likelihood at the production scale.
-        box = BoxTransform.from_bounds(
-            (1e-5, 1e5), (1e-3, 1e2), (1e-10, 1e2), device=dev, dtype=f64
-        )
-        fit = fit_gp_hyperparameters(
-            ts, Y, box, gens["fit"], n_restarts=n_restarts, adam_steps=150,
-            polish_iters=30, z0=given.z0,
-        )
+        fit = _fit(ts, Y, gens, n_restarts, given.z0)
     return ts, Y, svdvals, fit
+
+
+def _orthonormal(basis: torch.Tensor) -> torch.Tensor:
+    """The orthonormal basis nearest to ``basis`` (n, r): B (B^T B)^{-1/2},
+    computed in float64 and returned in ``basis``'s dtype.
+
+    The boundary transfer between local bases is exact only for
+    orthonormal ones, and the float32 range finder leaves a window's basis
+    orthonormal only to ~1e-4 at the production width (n 6000, k/W 1250;
+    its Gram floor keeps the sketch's noise directions short of unit
+    length): one symmetric orthogonalization finishes it. It moves the
+    basis by as much, towards the exact singular vectors."""
+    b = basis.to(torch.float64)
+    w, V = torch.linalg.eigh(b.T @ b)
+    return (b @ ((V / torch.sqrt(w)) @ V.T)).to(basis.dtype)
+
+
+def _compress_and_fit_local(
+    stage, gens, given, dev, data_source, n_space, n_snapshots, r, num_gp_samples, n_restarts,
+    W,
+):
+    """The front half with local window bases (the ``window_basis="local"``
+    branch of the reference's ``run_scaled``): each window's block of k/W
+    snapshot columns is centred on its own mean and gets its own randomized
+    POD, its own m/W GP samples and its own batched GP fit. Returns (ts (W,
+    m/W), Y (W, r, m/W) float64, svdvals (W, l), the fit of (W, r)
+    hyperparameters, bases (W, n, r) and centres (W, n), both float32)."""
+    f64 = torch.float64
+    states = _snapshots(stage, gens, given, dev, data_source, n_space, n_snapshots, r)
+    kw, mw = n_snapshots // W, num_gp_samples // W
+    t_all = np.linspace(0.0, 1.0, n_snapshots)
+    idx = given.sample_idx
+    if idx is None:
+        idx = np.stack([
+            np.sort(torch.randperm(kw, generator=gens["sample"], device=dev)[:mw].cpu().numpy())
+            for _ in range(W)
+        ])
+    ts = torch.as_tensor(np.stack([t_all[w * kw + idx[w]] for w in range(W)]), dtype=f64,
+                         device=dev)
+    bases, mus, svs, Ys = [], [], [], []
+    with stage("pod", "randomized POD per window"):
+        for w in range(W):
+            block = states[:, w * kw : (w + 1) * kw]
+            mu = block.mean(dim=1, keepdim=True)
+            centered = block - mu
+            basis, sv = randomized_pod(
+                centered, r, generator=gens["pod"],
+                Omega=None if given.sketch is None else given.sketch[w],
+            )
+            basis = _orthonormal(basis)
+            bases.append(basis)
+            mus.append(mu[:, 0])
+            svs.append(sv)
+            Ys.append((basis.T @ centered)[:, torch.as_tensor(idx[w], device=dev)])
+    Y = torch.stack(Ys).to(f64)  # (W, r, m/W)
+    with stage("gp_fit", "GP fit per window"):
+        fits = [_fit(ts[w], Y[w], gens, n_restarts, None if given.z0 is None else given.z0[w])
+                for w in range(W)]
+    fit = FitResult(*(torch.stack(field) for field in zip(*fits)))
+    return ts, Y, torch.stack(svs), fit, torch.stack(bases), torch.stack(mus)
 
 
 def run_scaled(
@@ -215,11 +291,19 @@ def run_scaled(
 
     ``time_windows``: W > 1 learns a separate ROM, with its own
     regression and regularization search, on each of W contiguous parts
-    of the training span, all projected onto one POD basis. All windows
-    share one batched screen, and one golden-section descent refines all
-    their regularizers in lockstep. ``window_chaining`` ("draws", "mean",
-    "anchor"; ``rollout``) picks the boundary scheme that ``train_error``
-    and ``ensemble_mean`` report; all three errors are recorded.
+    of the training span. All windows share one batched screen, and one
+    golden-section descent refines all their regularizers in lockstep.
+    ``window_chaining`` ("draws", "mean", "anchor"; ``rollout``) picks the
+    boundary scheme that ``train_error`` and ``ensemble_mean`` report; all
+    three errors are recorded.
+
+    ``window_basis`` (W > 1): "global" projects every window onto one POD
+    basis of the whole span; "local" gives each window its own r-mode POD
+    basis of its own centred snapshots, its own m/W GP samples and fits
+    and its own envelope, and the chained rollouts carry states across a
+    boundary by the exact transfer q' = B_{w+1}^T (mu_w + B_w q -
+    mu_{w+1}) (``search.transfer_maps``). Local bases need k and m
+    divisible by W.
 
     ``checkpoint_dir``: the front half (data, POD, the GP samples and the
     GP fit) is saved to ``<checkpoint_dir>/scaled_fit_stage``
@@ -228,12 +312,12 @@ def run_scaled(
     bit (every later stage draws from a generator of its own). A
     checkpoint of another run is recomputed and overwritten.
 
-    Not ported, each raising NotImplementedError: ``window_basis="local"``
-    and ``mesh``. ``normals`` replaces random numbers (``ScaledNormals``).
+    Not ported: ``mesh`` (more than one card) raises NotImplementedError.
+    ``normals`` replaces random numbers (``ScaledNormals``).
     """
     _check_arguments(
         regularization, modelform, tikhonov_gamma, time_windows, num_regression_points,
-        window_chaining, window_basis, mesh,
+        window_chaining, window_basis, mesh, n_snapshots, num_gp_samples,
     )
     dev = resolve_device(device)
     f64 = torch.float64
@@ -253,37 +337,46 @@ def run_scaled(
     elif weight_method == "eigh":  # either dense name: the Cholesky factor, as the reference
         weight_method = "chol"
     blocked = regularization == "blocked"
+    local = window_basis == "local"
 
     ckpt_path = os.path.join(checkpoint_dir, "scaled_fit_stage") if checkpoint_dir else None
     # The JAX package's key, and the two sizes of the front half that it
     # leaves out: a checkpoint of another sample count or restart count
     # would resume other samples or another fit.
-    ckpt_shape = [n_space, n_snapshots, num_modes, seed, data_source, window_basis, 0,
-                  num_gp_samples, n_restarts]
+    ckpt_shape = [n_space, n_snapshots, num_modes, seed, data_source, window_basis,
+                  W if local else 0, num_gp_samples, n_restarts]
     resumed = None
     if ckpt_path and has_checkpoint(ckpt_path):
         state, meta = load_checkpoint(ckpt_path, device=dev)
         if meta.get("shape") == ckpt_shape:
             resumed = state
+    bases = mus = None
     if resumed is not None:
         ts, Y, svdvals = resumed["ts"], resumed["Y"], resumed["svdvals"]
         fit = FitResult(*(resumed[k] for k in FitResult._fields))
+        if local:
+            bases, mus = resumed["bases"], resumed["mus"]
     else:
-        ts, Y, svdvals, fit = _compress_and_fit(
+        front = _compress_and_fit_local if local else _compress_and_fit
+        ts, Y, svdvals, fit, *local_bases = front(
             stage, gens, given, dev, data_source, n_space, n_snapshots, r, num_gp_samples,
-            n_restarts,
+            n_restarts, *((W,) if local else ()),
         )
+        if local:
+            bases, mus = local_bases
         if ckpt_path:
+            extra = dict(bases=bases, mus=mus) if local else {}
             save_checkpoint(
                 ckpt_path,
-                pipeline_stage_state(ts=ts, Y=Y, svdvals=svdvals, **fit._asdict()),
+                pipeline_stage_state(ts=ts, Y=Y, svdvals=svdvals, **fit._asdict(), **extra),
                 metadata={"shape": ckpt_shape},
             )
 
     rom = GalerkinROM(modelform, state_dimension=r, substeps=2)
     tw = torch.linspace(0.0, 1.0, num_regression_points, dtype=f64, device=dev).reshape(W, mw)
     with stage("estimate", f"GP estimation ({weight_method}, float64)"):
-        state_est, ddt_est, weight_ctx = gp_estimate_windows(
+        estimate = gp_estimate_windows_local if local else gp_estimate_windows
+        state_est, ddt_est, weight_ctx = estimate(
             ts, Y, fit.sigma2, fit.ell, fit.chi, tw, weight_method
         )
     with stage("weighting", f"weighting ({weight_method}, float64)"):
@@ -295,7 +388,8 @@ def run_scaled(
         fac = WeightedLSTSQ(U, S, V, torch.einsum("rmd,rm->rd", U, zt_flat), Dt_flat, zt_flat)
 
     make = lambda dtype: search.build_problem(
-        rom, fac, state_est, tw, regularization, tikhonov_gamma, envelope_floor, dtype
+        rom, fac, state_est, tw, regularization, tikhonov_gamma, envelope_floor, dtype,
+        bases, mus,
     )
     screen = make(torch.float32)
     grid = np.logspace(-12, 6, grid_size)
@@ -334,7 +428,10 @@ def run_scaled(
         weight_method=weight_method,
         sample_times=ts.cpu().numpy(),
         samples=Y.cpu().numpy(),
-        hyperparameters=torch.stack([fit.sigma2, fit.ell, fit.chi], dim=1).cpu().numpy(),
+        hyperparameters=torch.stack([fit.sigma2, fit.ell, fit.chi], dim=-1).cpu().numpy(),
+        window_basis=window_basis,
+        window_bases=None if bases is None else bases.cpu().numpy(),
+        window_means=None if mus is None else mus.cpu().numpy(),
         weight_ranks=(
             np.array([[root.rank for root in row] for row in weight_ctx[1]])
             if weight_method == "lowrank" else None

@@ -17,7 +17,7 @@ final ensembles take a float64 problem).
 """
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,13 +83,30 @@ class WindowProblem:
     sample: Callable  # (params (..., W[, 2]), xi (..., n, W r, d)) -> (..., n, W, r, d)
     states_w: torch.Tensor  # (W, r, mw) GP state estimates, the targets
     tw: torch.Tensor  # (W, mw) window time grids
-    shift: torch.Tensor  # (r,) envelope centres
-    limits: torch.Tensor  # (r,) envelope half-widths
+    shift: torch.Tensor  # (r,) envelope centres; (W, r) with local bases
+    limits: torch.Tensor  # (r,) envelope half-widths; (W, r) with local bases
+    # Local bases: (T (W, r, r), b (W, r)), window w's end state into
+    # window w+1's coordinates, q' = T_w q + b_w (``transfer_maps``); None:
+    # one basis, the identity.
+    transfer: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
     def q0s(self) -> torch.Tensor:
         """(W, r): every window starts on its GP estimate."""
         return self.states_w[:, :, 0]
+
+    def envelope(self, w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(shift, limits) of window w, each (r,)."""
+        if self.shift.ndim == 1:
+            return self.shift, self.limits
+        return self.shift[w], self.limits[w]
+
+    def hand_over(self, w: int, q: torch.Tensor) -> torch.Tensor:
+        """(..., r) end states of window w in the coordinates of window w+1."""
+        if self.transfer is None:
+            return q
+        T, b = self.transfer
+        return q @ T[w].T + b[w]
 
     def integrate(self, ohat: torch.Tensor) -> torch.Tensor:
         """(..., W, r, d) draws -> (..., W, r, mw) window rollouts, every
@@ -142,27 +159,54 @@ def make_sampler(fac: WeightedLSTSQ, regularization: str, W: int, rom: GalerkinR
     return lambda p, xi: shaped(mt.sample(p.repeat_interleave(r, -1), xi=xi))
 
 
+def transfer_maps(bases: torch.Tensor, mus: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact boundary transfer between local window bases (``bases``
+    (W, n, r) orthonormal, ``mus`` (W, n) the windows' centres): window w's
+    coefficients q map to window w+1's as q' = T_w q + b_w =
+    B_{w+1}^T (mu_w + B_w q - mu_{w+1}), so T_w = B_{w+1}^T B_w and b_w =
+    B_{w+1}^T (mu_w - mu_{w+1}). The last window carries the identity.
+    Returns (T (W, r, r), b (W, r)) in the bases' dtype."""
+    r = bases.shape[-1]
+    T = torch.einsum("wnr,wns->wrs", bases[1:], bases[:-1])
+    b = torch.einsum("wnr,wn->wr", bases[1:], mus[:-1] - mus[1:])
+    eye = torch.eye(r, dtype=bases.dtype, device=bases.device)[None]
+    return torch.cat([T, eye]), torch.cat([b, b.new_zeros((1, r))])
+
+
 def build_problem(rom, fac, state_est, tw, regularization, tikhonov_gamma,
-                  envelope_floor: float, dtype: torch.dtype) -> WindowProblem:
+                  envelope_floor: float, dtype: torch.dtype, bases=None,
+                  mus=None) -> WindowProblem:
     """The ``WindowProblem`` of a run in ``dtype``, from the float64
     factorization ``fac`` of all W r row problems, the GP state estimates
-    (W, r, mw) and the window grids (W, mw).
+    (W, r, mw) and the window grids (W, mw); with local window bases
+    ``bases`` (W, n, r) and their centres ``mus`` (W, n), also the
+    boundary transfer between them.
 
     Each mode's envelope is 5x its amplitude over the whole span, floored
     at ``envelope_floor`` times the largest mode's: a trailing POD mode
     whose GP estimate is (rightly) smoothed to near-flat would otherwise
-    reject every draw. 0.0 keeps the strict per-mode rule.
+    reject every draw. 0.0 keeps the strict per-mode rule. Local
+    coefficients exist only within their window, so there the envelope is
+    per (window, mode), floored within each window.
     """
     W, r, mw = state_est.shape
     states_w = state_est.to(dtype)
-    full = states_w.transpose(0, 1).reshape(r, W * mw)
-    shift = full.mean(dim=1)
-    limits = 5.0 * (full - shift[:, None]).abs().amax(dim=1)
-    if envelope_floor:
-        limits = torch.maximum(limits, envelope_floor * limits.max())
+    transfer = None
+    if bases is not None:
+        shift = states_w.mean(dim=2)  # (W, r)
+        limits = 5.0 * (states_w - shift[:, :, None]).abs().amax(dim=2)
+        if envelope_floor:
+            limits = torch.maximum(limits, envelope_floor * limits.amax(dim=1, keepdim=True))
+        transfer = transfer_maps(bases.to(dtype), mus.to(dtype))
+    else:
+        full = states_w.transpose(0, 1).reshape(r, W * mw)
+        shift = full.mean(dim=1)
+        limits = 5.0 * (full - shift[:, None]).abs().amax(dim=1)
+        if envelope_floor:
+            limits = torch.maximum(limits, envelope_floor * limits.max())
     fac = WeightedLSTSQ(*(x.to(dtype) for x in fac))
     sample = make_sampler(fac, regularization, W, rom, tikhonov_gamma)
-    return WindowProblem(rom, sample, states_w, tw.to(dtype), shift, limits)
+    return WindowProblem(rom, sample, states_w, tw.to(dtype), shift, limits, transfer)
 
 
 def grid_screen(problem: WindowProblem, grid: np.ndarray, xi, blocked: bool) -> np.ndarray:

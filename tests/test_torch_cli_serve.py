@@ -47,22 +47,25 @@ def test_serve_answers_and_survives(monkeypatch, capsys):
         "[]",
         "euler 0.06",
         TINY + " --windows 2 --window-basis local",
+        TINY + " --windows 3",
         "serve",
         "quit",
         TINY,  # after quit: not run
     ])
     assert rc == 0
-    assert [a["rc"] for a in acks] == [0, 0, 2, 2, 2, 2, 2, 1, 2]
+    assert [a["rc"] for a in acks] == [0, 0, 2, 2, 2, 2, 2, 0, 1, 2]
     assert acks[0]["argv"] == acks[1]["argv"] == TINY.split()
     # The CPU takes the screens' plain versions: no kernel launches.
     assert acks[0]["launches"] == {"quadratic_ensemble_screen": 0, "cahbn_ensemble_screen": 0}
     for ack in acks[2:6]:
         assert ack["argv"] is None and ack["error"].startswith("bad request")
     assert "argparse" in acks[6]["error"] and acks[6]["argv"] == ["euler", "0.06"]
-    assert "NotImplementedError" in acks[7]["error"]
-    assert "nest" in acks[8]["error"] and acks[8]["argv"] == ["serve"]
+    assert acks[7]["argv"][-2:] == ["--window-basis", "local"] and "error" not in acks[7]
+    assert "ValueError" in acks[8]["error"] and "divide" in acks[8]["error"]
+    assert "nest" in acks[9]["error"] and acks[9]["argv"] == ["serve"]
     summaries = [json.loads(line) for line in out if line.startswith('{"regularizer"')]
-    assert len(summaries) == 2 and summaries[0] == summaries[1]
+    assert len(summaries) == 3 and summaries[0] == summaries[1]
+    assert summaries[2]["window_basis"] == "local" and len(summaries[2]["window_regularizers"]) == 2
 
 
 def test_serve_ends_at_end_of_input(monkeypatch, capsys):

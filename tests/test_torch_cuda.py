@@ -36,8 +36,9 @@ def _case(r, G, nd, k, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("r,G,nd", [(6, 4, 20), (3, 5, 7), (12, 2, 32)])
+@pytest.mark.parametrize("r,G,nd", [(6, 4, 20), (3, 5, 7), (12, 2, 32), (13, 3, 20), (16, 2, 7)])
 def test_kernel_matches_plain(cuda, r, G, nd):
+    """Templated instances (r <= 12) and the runtime-r kernel (r = 13, 16)."""
     args = _case(r, G, nd, 40, cuda)
     before = es.launches
     s_k, e_k = es.quadratic_ensemble_screen(*args, nd=nd, substeps=4)
@@ -161,11 +162,21 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         es.quadratic_ensemble_screen_cuda(*args, nd=3)
     with pytest.raises(ValueError, match="float32"):
         es.quadratic_ensemble_screen_cuda(args[0].double(), *args[1:], nd=4)
-    r = 13  # above the compiled instances (1..12)
-    wide = torch.zeros((44, r, 1 + r + r * (r + 1) // 2), device=cuda)
-    zeros = torch.zeros(r, device=cuda)
-    with pytest.raises(ValueError, match="no instance"):
-        es.quadratic_ensemble_screen_cuda(wide, zeros, args[2], zeros, zeros + 1, nd=22)
+    empty = torch.zeros((44, 0, 1), device=cuda)  # r = 0
+    zeros = torch.zeros(0, device=cuda)
+    with pytest.raises(ValueError, match="r >= 1"):
+        es.quadratic_ensemble_screen_cuda(empty, zeros, args[2], zeros, zeros + 1, nd=22)
+
+
+@pytest.mark.gpu
+def test_runtime_r_kernel_matches_templated(cuda):
+    """The runtime-r kernel forced at r = 6: the templated instance's flags."""
+    args = [a.float().contiguous() for a in _case(6, 4, 20, 40, cuda)]
+    s_t, e_t = es.quadratic_ensemble_screen_cuda(*args, nd=20)
+    s_a, e_a = es.quadratic_ensemble_screen_cuda(*args, nd=20, any_r=True)
+    assert torch.equal(s_a, s_t)
+    ok = s_t.reshape(4, 20).all(dim=1)
+    torch.testing.assert_close(e_a[ok], e_t[ok], rtol=1e-3, atol=0.0)
 
 
 def _cahbn_case(r, nu, G, nd, k, substeps, device):
@@ -177,15 +188,18 @@ def _cahbn_case(r, nu, G, nd, k, substeps, device):
     Ohat[1, 0, 0] = np.nan
     t = torch.linspace(0, 1.5, k, dtype=torch.float64)
     ts = cs.input_stage_times(t, substeps)
-    u = torch.stack([torch.sin(2 * np.pi * ts), torch.cos(4 * np.pi * ts)][:nu], dim=-1)
+    u = torch.stack([torch.sin(2 * np.pi * ts), torch.cos(4 * np.pi * ts),
+                     torch.sin(6 * np.pi * ts)][:nu], dim=-1)
     arrays = (Ohat, 0.3 * rng.standard_normal(r), t, np.zeros(r), np.full(r, 8.0), u,
               rng.standard_normal((r, k)))
     return [torch.as_tensor(a, device=device) for a in arrays]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("r,nu,G,nd", [(5, 2, 4, 20), (3, 2, 5, 7), (8, 1, 3, 32)])
+@pytest.mark.parametrize("r,nu,G,nd", [(5, 2, 4, 20), (3, 2, 5, 7), (8, 1, 3, 32), (9, 2, 3, 20),
+                                       (10, 2, 2, 7), (6, 3, 3, 20)])
 def test_cahbn_kernel_matches_plain(cuda, r, nu, G, nd):
+    """Templated instances (r <= 8, nu <= 2) and the runtime-(r, nu) kernel."""
     args = _cahbn_case(r, nu, G, nd, 30, 2, cuda)
     before = cs.launches
     s_k, e_k = cs.cahbn_ensemble_screen(*args, nd=nd, substeps=2)
@@ -214,7 +228,7 @@ def _batched(args, L, per_problem, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("r,G,nd,L", [(6, 4, 20, 2), (3, 5, 7, 3), (12, 2, 32, 2)])
+@pytest.mark.parametrize("r,G,nd,L", [(6, 4, 20, 2), (3, 5, 7, 3), (12, 2, 32, 2), (16, 2, 7, 2)])
 def test_batched_kernel_matches_plain(cuda, r, G, nd, L):
     args = _batched(_case(r, G, nd, 40, cuda), L, (1, 3, 4, 5), r)
     before = es.launches
@@ -234,7 +248,8 @@ def test_batched_kernel_matches_plain(cuda, r, G, nd, L):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("r,nu,G,nd,L", [(5, 2, 4, 20, 5), (3, 2, 5, 7, 2), (8, 1, 3, 32, 2)])
+@pytest.mark.parametrize("r,nu,G,nd,L", [(5, 2, 4, 20, 5), (3, 2, 5, 7, 2), (8, 1, 3, 32, 2),
+                                         (9, 2, 2, 7, 3)])
 def test_batched_cahbn_kernel_matches_plain(cuda, r, nu, G, nd, L):
     args = _batched(_cahbn_case(r, nu, G, nd, 30, 2, cuda), L, (1, 3, 4, 5, 6), r)
     before = cs.launches
@@ -260,9 +275,8 @@ def test_cahbn_kernel_rejects_what_it_does_not_take(cuda):
         cs.cahbn_ensemble_screen_cuda(*args, nd=3, substeps=2)
     with pytest.raises(ValueError, match="float32"):
         cs.cahbn_ensemble_screen_cuda(args[0].double(), *args[1:], nd=4, substeps=2)
-    r = 9  # above the compiled instances (1..8)
-    wide = torch.zeros((4, r, 1 + r + r * (r + 1) // 2 + 2 + 2 * r), device=cuda)
-    zeros = torch.zeros(r, device=cuda)
-    with pytest.raises(ValueError, match="no instance"):
-        cs.cahbn_ensemble_screen_cuda(wide, zeros, args[2], zeros, zeros + 1, args[5],
+    empty = torch.zeros((4, 0, 3), device=cuda)  # r = 0
+    zeros = torch.zeros(0, device=cuda)
+    with pytest.raises(ValueError, match="r and nu >= 1"):
+        cs.cahbn_ensemble_screen_cuda(empty, zeros, args[2], zeros, zeros + 1, args[5],
                                       nd=4, substeps=2)

@@ -564,7 +564,8 @@ def test_lowrank_auto_threshold(monkeypatch):
     (dict(window_basis="nested"), ValueError, "unknown window_basis"),
     (dict(window_basis="local"), ValueError, "requires time_windows > 1"),
     (dict(data_source="heat"), ValueError, "unknown data_source"),
-    (dict(window_basis="local", time_windows=2), NotImplementedError, "item 12"),
+    (dict(window_basis="local", time_windows=16), ValueError, "n_snapshots must divide"),
+    (dict(window_basis="local", time_windows=8), ValueError, "num_gp_samples must divide"),
     (dict(mesh=object()), NotImplementedError, "item 12"),
 ])
 def test_run_scaled_guards(kwargs, error, match):
@@ -609,8 +610,9 @@ def test_scaled_cli(capsys, tmp_path):
     assert summary["time_windows"] == 2 and summary["chaining"] == "anchor"
     assert summary["train_error"] == summary["window_error"]
     assert len(summary["window_regularizers"]) == 2
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.run(small + ["--windows", "2", "--window-basis", "local"])
+    local = cli.run(small + ["--windows", "2", "--window-basis", "local"])
+    assert local.window_basis == "local" and local.window_bases.shape == (2, N, R)
+    assert np.isfinite(local.window_regularizers).all()
     first = cli.run(small + ["--checkpoint-dir", str(tmp_path)])
     resumed = cli.run(small + ["--checkpoint-dir", str(tmp_path)])
     assert {"data", "pod", "gp_fit"} <= set(first.stage_seconds)
