@@ -17,21 +17,29 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    SEIRD screen shapes (r = 5, d = 21, operators made by
    ``SEIRD2.cah_operators`` of perturbed parameter draws; k = 360 over
    [0, 90] with the error term, k = 500 over [0, 200] without);
-3b. kernel A's runtime-r kernel (above the templated r <= 12) against the
-   plain version at r = 13, 16 and 24 (d = 105, 153, 325) with phase 3's
-   cases (k = 400 with the error term and k = 401 without, nd = 7, L = 2),
-   timed; then forced at r = 6 against the templated instance: identical
-   flags;
+3b. kernel A above the templated r <= 12, so through its
+   capacity-templated kernel, at r = 13, 16 and 24 (d = 105, 153, 325)
+   with phase 3's cases (k = 400 with the error term and k = 401 without,
+   nd = 7, L = 2): against the plain version (identical flags) and against
+   PR 7's runtime-r kernel forced on the same inputs (identical flags,
+   err_sq bit-equal), timed in turns with it; then the capacity and the
+   runtime-r kernel forced at r = 6 against the templated instance:
+   identical flags;
 4. the same for kernel B (SDIRK2 "cAHBN" screen) at the heat ex3 screen
    shapes (G = 16, r = 5, nu = 2, d = 33, 4 substeps, 6 Newton steps,
    the ex3 input family): k = 80 with the error term, k = 120 over [0, 2]
    without it, nd = 7, and ex3's L = 5 trajectories in one launch, each
    with its own q0 and (a, b) inputs; the kernel is also timed at the
    full prediction grid, k = 500, with L = 1 and L = 5;
-4b. kernel B's runtime-(r, nu) kernel (above r <= 8, nu <= 2) against the
-   plain version at r = 9 and 12 with nu = 2 (the ex3 input family) and r
-   = 6 with nu = 3, k = 80 with the error term, timed; at r = 9 also k =
-   40 without it, and with it nd = 7 and L = 5 in one launch (k = 40);
+4b. kernel B above r <= 8, nu <= 2, so through its capacity-templated
+   kernel, at r = 9 and 12 with nu = 2 (the ex3 input family) and r = 6
+   with nu = 3, k = 80 with the error term; at r = 9 also k = 40 without
+   it, and with it nd = 7 and L = 5 in one launch (k = 40): against the
+   plain version and against PR 7's runtime-(r, nu) kernel as in 3b,
+   timed in turns with it at k = 80; at the heat search's other grid (r =
+   9, nu = 2, k = 500 without the error term, L = 5) against the runtime
+   kernel and timed in turns; then both forced at r = 5, nu = 2 against
+   the templated instance;
 5. run the full ex1a workload through the port's CLI entry
    (``euler 0.06 200 0.03 400 6 --ndraws 600`` on ``cuda``) and check
    that the grid search went through kernel A, two launches per objective
@@ -54,8 +62,9 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    objective evaluation, and that the ensemble is sound;
 8b. ``euler 0.06 200 0.03 400 16 --ndraws 600`` and 8c. ``heat 1.0 20
    0.05 80 9 --ndraws 600``: searches above the templated instances, so
-   through the runtime-dimension kernels; two launches per objective
-   evaluation, a sound ensemble, lambda, valid counts and errors printed;
+   through the capacity-templated kernels (every launch, by the wrappers'
+   per-family counts); two launches per objective evaluation, a sound
+   ensemble, lambda, valid counts and errors printed;
 9. run the production-scale pipeline at its defaults (``scaled``: n =
    6000, 10,000 snapshots, 30 modes, m' = 2048, low-rank roots, 256
    draws) and check its regularizer, grid, stable share, training error
@@ -468,11 +477,39 @@ def cahbn_phase():
     return dict(max_abs_err=max_err, **fields)
 
 
-def any_r_phase():
-    """Phase 3b: kernel A's runtime-r kernel against its plain version at r
-    = 13, 16 and 24 (d = 105, 153, 325) with phase 3's cases, then forced
-    at r = 6 against the templated instance. Returns the JSON fields of
-    each r, from its k = 400 error-tracking call."""
+def same_bits(name, s_new, e_new, s_old, e_old):
+    """The new kernel against PR 7's runtime kernel on the same inputs:
+    identical flags and err_sq bit for bit (NaN where the other is NaN).
+    Both keep each row's arithmetic in the same order and the same
+    per-draw partial sums, so no tolerance is needed."""
+    assert torch.equal(s_new, s_old), (
+        f"{name}: flags differ from the runtime kernel: {torch.nonzero(s_new != s_old).tolist()}")
+    nan_new, nan_old = torch.isnan(e_new), torch.isnan(e_old)
+    assert torch.equal(nan_new, nan_old), f"{name}: err_sq NaN where the runtime kernel's is not"
+    bits_new, bits_old = e_new.view(torch.int32), e_old.view(torch.int32)
+    differ = (bits_new != bits_old) & ~nan_new
+    assert not bool(differ.any()), (
+        f"{name}: err_sq not bit-equal to the runtime kernel's at {torch.nonzero(differ).tolist()}: "
+        f"{e_new[differ].tolist()} against {e_old[differ].tolist()}")
+
+
+def in_turns(old, new, reps):
+    """CUDA-event milliseconds of two calls in the order old, new, new, old;
+    returns (old's two times, new's two times)."""
+    t = [cuda_ms(fn, reps) for fn in (old, new, new, old)]
+    return [t[0], t[3]], [t[1], t[2]]
+
+
+def capacity_a_phase():
+    """Phase 3b: kernel A above its templated instances, so through the
+    capacity-templated kernel, at r = 13, 16 and 24 (d = 105, 153, 325)
+    with phase 3's cases: against the plain version (identical flags,
+    err_sq within rtol 1e-3) and against PR 7's runtime-r kernel forced on
+    the same inputs (identical flags, err_sq bit-equal); timed in turns
+    with the runtime-r kernel at k = 400. Then forced at r = 6, both the
+    capacity and the runtime-r kernel against the templated instance:
+    identical flags. Returns the JSON fields of each r, from its k = 400
+    error-tracking call."""
     from gp_bayesopinf_torch.ops import ensemble_screen as es
 
     rng = np.random.default_rng(20261017)
@@ -488,7 +525,9 @@ def any_r_phase():
             a = batched_case(a, L, rng, {})
         f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
         kw = dict(nd=nd, substeps=8, track_error=track)
+        assert es.screen_family(r) == "capacity"
         s_k, e_k = es.quadratic_ensemble_screen(*a.values(), **kw)
+        s_r, e_r = es.quadratic_ensemble_screen_cuda(*f.values(), **kw, family="runtime")
         torch.cuda.synchronize()
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -496,20 +535,30 @@ def any_r_phase():
         stop.record()
         torch.cuda.synchronize()
         err = hold(f"A r={r}", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd, track, L > 0)
-        print(f"[kernel A, runtime r] r={r} G={G} nd={nd} k={k} track_error={track} L={L or 1}: "
-              f"flags identical ({int(s_k.sum())}/{s_k.numel()} stable), err_sq max abs diff "
-              f"{err:.3e}", flush=True)
+        same_bits(f"A r={r}", s_k, e_k, s_r, e_r)
+        print(f"[kernel A, capacity {es.capacity_instance(r)}] r={r} G={G} nd={nd} k={k} "
+              f"track_error={track} L={L or 1}: flags identical to the plain version "
+              f"({int(s_k.sum())}/{s_k.numel()} stable), err_sq max abs diff {err:.3e}; flags "
+              "identical and err_sq bit-equal to the runtime-r kernel", flush=True)
         if (nd, k, L) != (20, 400, 0):
             continue
-        ms = cuda_ms(lambda: es.quadratic_ensemble_screen_cuda(*f.values(), **kw), 5)
+        old, new = in_turns(
+            lambda: es.quadratic_ensemble_screen_cuda(*f.values(), **kw, family="runtime"),
+            lambda: es.quadratic_ensemble_screen_cuda(*f.values(), **kw), 5)
+        ms, ms_old = sum(new) / 2, sum(old) / 2
         bound, by = bound_ms(quadratic_flops(G * nd, r, k, 8), screen_bytes(f.values(), G * nd, G))
-        out[r] = dict(ms=ms, plain_ms=start.elapsed_time(stop), bound_ms=bound, bound_by=by,
-                      max_abs_err=err)
-        print(f"[kernel A, runtime r] r={r} k=400 with error: kernel {ms:.3f} ms, plain "
-              f"{out[r]['plain_ms']:.3f} ms (CUDA events; plain one run), bound {bound:.4f} ms "
-              f"({by}); {1e6 * ms / ((k - 1) * 8 * 4):.1f} ns per right-hand side", flush=True)
+        rhs = (k - 1) * 8 * 4
+        out[r] = dict(ms=ms, runtime_ms=ms_old, plain_ms=start.elapsed_time(stop),
+                      bound_ms=bound, bound_by=by, max_abs_err=err, ns_per_rhs=1e6 * ms / rhs,
+                      capacity=es.capacity_instance(r))
+        print(f"[kernel A, capacity {es.capacity_instance(r)}] r={r} k=400 with error, in turns "
+              f"(runtime, capacity, capacity, runtime): {old[0]:.3f}, {new[0]:.3f}, {new[1]:.3f}, "
+              f"{old[1]:.3f} ms ({ms_old / ms:.2f}x); plain {out[r]['plain_ms']:.3f} ms (CUDA "
+              f"events; plain one run), bound {bound:.4f} ms ({by}); {1e6 * ms / rhs:.1f} ns per "
+              f"right-hand side (runtime-r kernel {1e6 * ms_old / rhs:.1f})", flush=True)
 
-    # The runtime-r kernel at r = 6 against the templated instance.
+    # Below the capacity kernel's range: both it and the runtime-r kernel,
+    # forced at r = 6, against the templated instance.
     for L in (0, 2):
         a = screen_case(16, 20, 400, 0.06, rng, True)
         if L:
@@ -517,23 +566,33 @@ def any_r_phase():
         f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
         kw = dict(nd=20, substeps=8, track_error=True)
         s_t, e_t = es.quadratic_ensemble_screen_cuda(*f.values(), **kw)
-        s_a, e_a = es.quadratic_ensemble_screen_cuda(*f.values(), **kw, any_r=True)
-        torch.cuda.synchronize()
-        assert torch.equal(s_a, s_t), f"r=6: flags differ: {torch.nonzero(s_a != s_t).tolist()}"
         ok = s_t.reshape(s_t.shape[:-1] + (16, 20)).all(dim=-1) & torch.isfinite(e_t)
-        torch.testing.assert_close(e_a[ok], e_t[ok], rtol=1e-3, atol=0.0)
-        print(f"[kernel A, runtime r] forced at r=6, L={L or 1}: flags identical to the templated "
-              f"instance ({int(s_a.sum())}/{s_a.numel()} stable), err_sq max abs diff "
-              f"{float((e_a[ok] - e_t[ok]).abs().max()):.3e}", flush=True)
+        for family in ("capacity", "runtime"):
+            s_a, e_a = es.quadratic_ensemble_screen_cuda(*f.values(), **kw, family=family)
+            torch.cuda.synchronize()
+            assert torch.equal(s_a, s_t), (
+                f"r=6, {family}: flags differ: {torch.nonzero(s_a != s_t).tolist()}")
+            torch.testing.assert_close(e_a[ok], e_t[ok], rtol=1e-3, atol=0.0)
+            print(f"[kernel A, {family}] forced at r=6, L={L or 1}: flags identical to the "
+                  f"templated instance ({int(s_a.sum())}/{s_a.numel()} stable), err_sq max abs "
+                  f"diff {float((e_a[ok] - e_t[ok]).abs().max()):.3e}", flush=True)
     return out
 
 
-def cahbn_any_phase():
-    """Phase 4b: kernel B's runtime-(r, nu) kernel against its plain version
-    at r = 9 and 12 with nu = 2 (the ex3 input family) and r = 6 with nu = 3,
-    k = 80 with the error term; at r = 9 also k = 40 without it, and with
-    it nd = 7 and ex3's L = 5 trajectories in one launch. Returns the JSON fields of each
-    (r, nu), from its k = 80 error-tracking call."""
+def capacity_b_phase():
+    """Phase 4b: kernel B beyond its templated instances, so through the
+    capacity-templated kernel, at r = 9 and 12 with nu = 2 (the ex3 input
+    family) and r = 6 with nu = 3, k = 80 with the error term; at r = 9
+    also k = 40 without it, and with it nd = 7 and ex3's L = 5 trajectories
+    in one launch: against the plain version (identical flags, err_sq
+    within rtol 1e-3) and against PR 7's runtime-(r, nu) kernel forced on
+    the same inputs (identical flags, err_sq bit-equal); timed in turns
+    with the runtime kernel at k = 80, and at the search's other grid (r =
+    9, nu = 2, k = 500 without the error term, L = 5), held there against
+    the runtime kernel alone (the plain version would take minutes). Then
+    forced at r = 5, nu = 2 against the templated instance: identical
+    flags. Returns the JSON fields of each (r, nu), from its k = 80
+    error-tracking call."""
     from gp_bayesopinf_torch.ops import cahbn_screen as cs
     from gp_bayesopinf_torch.pipeline.configs import HeatMultiConfig
 
@@ -543,10 +602,11 @@ def cahbn_any_phase():
     params = HeatMultiConfig().input_parameters
     # (r, nu, G, nd, k, t_max, track_error, L)
     # The edge cases at k = 40: the plain version's ~16 s a problem at k = 80
-    # would take 80 s for L = 5 alone.
+    # would take 80 s for L = 5 alone. k = 500 runs no plain version.
     cases = [(9, 2, 16, 20, 80, 1.0, True, 0), (12, 2, 16, 20, 80, 1.0, True, 0),
              (6, 3, 16, 20, 80, 1.0, True, 0), (9, 2, 16, 20, 40, 2.0, False, 0),
-             (9, 2, 16, 7, 40, 1.0, True, 0), (9, 2, 16, 20, 40, 1.0, True, 5)]
+             (9, 2, 16, 7, 40, 1.0, True, 0), (9, 2, 16, 20, 40, 1.0, True, 5),
+             (9, 2, 16, 20, 500, 2.0, False, 5)]
     for r, nu, G, nd, k, t_max, track, L in cases:
         a = cahbn_case(G, nd, k, t_max, rng, track, r=r, nu=nu)
         if L:
@@ -554,32 +614,72 @@ def cahbn_any_phase():
                                                                               a["t_eval"])})
         f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
         kw = dict(nd=nd, substeps=4, newton_iters=6, track_error=track)
+        assert cs.screen_family(r, nu) == "capacity"
+        instance = f"capacity {cs.capacity_instance(r)}"
         s_k, e_k = cs.cahbn_ensemble_screen(*a.values(), **kw)
+        s_r, e_r = cs.cahbn_ensemble_screen_cuda(*f.values(), **kw, family="runtime")
         torch.cuda.synchronize()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        s_p, e_p, maxdev = cs._plain(*f.values(), nd, 4, 6, track)
-        stop.record()
-        torch.cuda.synchronize()
-        err = hold(f"B r={r} nu={nu}", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd, track,
-                   L > 0)
-        print(f"[kernel B, runtime r, nu] r={r} nu={nu} G={G} nd={nd} k={k} track_error={track} "
-              f"L={L or 1}: flags identical ({int(s_k.sum())}/{s_k.numel()} stable), err_sq max "
-              f"abs diff {err:.3e}", flush=True)
-        if (nd, k, L) != (20, 80, 0):
+        same_bits(f"B r={r} nu={nu} k={k}", s_k, e_k, s_r, e_r)
+        if k < 500:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            s_p, e_p, maxdev = cs._plain(*f.values(), nd, 4, 6, track)
+            stop.record()
+            torch.cuda.synchronize()
+            err = hold(f"B r={r} nu={nu}", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd,
+                       track, L > 0)
+            print(f"[kernel B, {instance}] r={r} nu={nu} G={G} nd={nd} k={k} track_error={track} "
+                  f"L={L or 1}: flags identical to the plain version ({int(s_k.sum())}/"
+                  f"{s_k.numel()} stable), err_sq max abs diff {err:.3e}; flags identical and "
+                  "err_sq bit-equal to the runtime kernel", flush=True)
+        else:
+            print(f"[kernel B, {instance}] r={r} nu={nu} G={G} nd={nd} k={k} track_error={track} "
+                  f"L={L}: flags identical to the runtime kernel ({int(s_k.sum())}/{s_k.numel()} "
+                  "stable)", flush=True)
+        if (nd, k, L) not in ((20, 80, 0), (20, 500, 5)):
             continue
-        ms = cuda_ms(lambda: cs.cahbn_ensemble_screen_cuda(*f.values(), **kw), 5)
-        # The runtime kernel stops integrating a draw once it turns NaN: the
-        # NaN-operator draws do no Newton work, so they are not counted.
-        nan_draws = int(torch.isnan(f["Ohat"]).flatten(1).any(dim=1).sum())
-        bound, by = bound_ms(cahbn_flops(G * nd - nan_draws, r, nu, k, 4, 6),
-                             screen_bytes(f.values(), G * nd, G))
-        out[(r, nu)] = dict(ms=ms, plain_ms=start.elapsed_time(stop), bound_ms=bound,
-                            bound_by=by, max_abs_err=err)
-        print(f"[kernel B, runtime r, nu] r={r} nu={nu} k=80 with error: kernel {ms:.3f} ms, "
-              f"plain {out[(r, nu)]['plain_ms']:.3f} ms (CUDA events; plain one run), bound "
-              f"{bound:.4f} ms ({by}); {1e6 * ms / ((k - 1) * 4 * 2 * 6):.1f} ns per Newton step",
-              flush=True)
+        old, new = in_turns(
+            lambda: cs.cahbn_ensemble_screen_cuda(*f.values(), **kw, family="runtime"),
+            lambda: cs.cahbn_ensemble_screen_cuda(*f.values(), **kw), 5 if k == 80 else 2)
+        ms, ms_old = sum(new) / 2, sum(old) / 2
+        # Both kernels stop integrating a draw once it turns NaN: the NaN-operator
+        # draws (and, with L = 5, draw 3 of trajectory 1, NaN after its first
+        # right-hand side; batched_case) do no Newton work and are not counted.
+        nan_draws = 1 if L else int(torch.isnan(f["Ohat"]).flatten(1).any(dim=1).sum())
+        bound, by = bound_ms(cahbn_flops((L or 1) * G * nd - nan_draws, r, nu, k, 4, 6),
+                             screen_bytes(f.values(), (L or 1) * G * nd, (L or 1) * G))
+        steps = (k - 1) * 4 * 2 * 6
+        fields = dict(ms=ms, runtime_ms=ms_old, bound_ms=bound, bound_by=by,
+                      ns_per_newton_step=1e6 * ms / steps, capacity=cs.capacity_instance(r))
+        print(f"[kernel B, {instance}] r={r} nu={nu} k={k} track_error={track} L={L or 1}, in "
+              f"turns (runtime, capacity, capacity, runtime): {old[0]:.3f}, {new[0]:.3f}, "
+              f"{new[1]:.3f}, {old[1]:.3f} ms ({ms_old / ms:.2f}x); bound {bound:.4f} ms ({by}); "
+              f"{1e6 * ms / steps:.1f} ns per Newton step (runtime kernel "
+              f"{1e6 * ms_old / steps:.1f})", flush=True)
+        if k == 500:
+            out[(9, 2)]["k500_L5"] = fields
+            continue
+        out[(r, nu)] = dict(fields, plain_ms=start.elapsed_time(stop), max_abs_err=err)
+        print(f"[kernel B, {instance}] r={r} nu={nu} k=80: plain {out[(r, nu)]['plain_ms']:.3f} "
+              "ms (CUDA events, one run)", flush=True)
+
+    # Below the capacity kernel's range: it and the runtime kernel, forced at
+    # r = 5, nu = 2 (ex3's shape), against the templated instance.
+    a = cahbn_case(16, 20, 80, 1.0, rng, True)
+    f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
+    kw = dict(nd=20, substeps=4, newton_iters=6, track_error=True)
+    s_t, e_t = cs.cahbn_ensemble_screen_cuda(*f.values(), **kw)
+    ok = s_t.reshape(16, 20).all(dim=-1) & torch.isfinite(e_t)
+    for family in ("capacity", "runtime"):
+        s_a, e_a = cs.cahbn_ensemble_screen_cuda(*f.values(), **kw, family=family)
+        torch.cuda.synchronize()
+        assert torch.equal(s_a, s_t), (
+            f"r=5, nu=2, {family}: flags differ: {torch.nonzero(s_a != s_t).tolist()}")
+        torch.testing.assert_close(e_a[ok], e_t[ok], rtol=1e-3, atol=0.0)
+        print(f"[kernel B, {family}] forced at r=5, nu=2: flags identical to the templated "
+              f"instance ({int(s_a.sum())}/{s_a.numel()} stable), err_sq max abs diff "
+              f"{float((e_a[ok] - e_t[ok]).abs().max()):.3e}", flush=True)
     return out
 
 
@@ -587,6 +687,8 @@ def reset_launches():
     from gp_bayesopinf_torch.ops import cahbn_screen, ensemble_screen
 
     ensemble_screen.launches = cahbn_screen.launches = 0
+    for counts in (ensemble_screen.family_launches, cahbn_screen.family_launches):
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def read_launches():
@@ -889,8 +991,14 @@ def wide_phase(argv, kernel, r):
     and a sound ensemble. Returns the launches."""
     from gp_bayesopinf_torch.pipeline import ensemble_error, ensemble_errors
 
+    from gp_bayesopinf_torch.ops import cahbn_screen, ensemble_screen
+
     res, wall, launches, evals = run_counted(argv, kernel)
+    families = dict((ensemble_screen if kernel == "quadratic_ensemble_screen"
+                     else cahbn_screen).family_launches)
     name = " ".join(argv[:6])
+    print(f"[{name}] launches by kernel family: {families}", flush=True)
+    assert families["capacity"] == launches, f"not every launch took the capacity kernel: {families}"
     print(f"[{name}] wall {wall:.2f} s; stages (s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
     if argv[0] == "heat":
@@ -1137,16 +1245,16 @@ def main() -> int:
         return out
 
     fields = {"quadratic_ensemble_screen": phase("kernel A", kernel_phase)}
-    wide_a = phase("kernel A, runtime r", any_r_phase)
+    wide_a = phase("kernel A, capacity", capacity_a_phase)
     fields["cahbn_ensemble_screen"] = phase("kernel B", cahbn_phase)
-    wide_b = phase("kernel B, runtime r and nu", cahbn_any_phase)
+    wide_b = phase("kernel B, capacity", capacity_b_phase)
     fields["quadratic_ensemble_screen"]["launches"] = phase("ex1a", pipeline_phase)
     fields["cahbn_ensemble_screen"]["launches"] = phase("ex3", heat_phase)
     # Kernel A carries several main paths: its launches are those of all runs.
     seird_launches, seird_res = phase("seird", seird_phase)
     by_path = {"ex1a": fields["quadratic_ensemble_screen"]["launches"], "seird": seird_launches,
                "ex1c": phase("ex1c", ex1c_phase)}
-    # The runtime-dimension kernels' main paths: the two searches above the
+    # The capacity-templated kernels' main paths: the two searches above the
     # templated instances.
     wide_launches = {"quadratic_ensemble_screen": phase(
         "euler r=16", wide_phase, EULER16, "quadratic_ensemble_screen", 16)}
@@ -1179,17 +1287,22 @@ def main() -> int:
         entry("quadratic_ensemble_screen", dict(A["ex1c"], launches=by_path["ex1c"]),
               shape="ex1c: G 16, nd 20, r 6, k 3200, error term"),
     ]
-    # The runtime-dimension kernels, each shape with the launches of its
-    # family's main path (euler ... 400 16 for A, heat ... 80 9 for B).
+    # The capacity-templated kernels, each shape with the launches of its
+    # family's main path (euler ... 400 16 for A, heat ... 80 9 for B) and
+    # PR 7's runtime-dimension kernel timed in turns beside it (runtime_ms).
     launches_a, launches_b = (wide_launches[k] for k in KERNELS)
+
+    def extra(f):
+        return {n: v for n, v in f.items() if n not in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                        "max_abs_err", "launches")}
+
     kernels += [entry("quadratic_ensemble_screen", dict(f, launches=launches_a),
-                      family="runtime r", shape=f"G 16, nd 20, r {r}, k 400, error term",
-                      launches_path="euler 0.06 200 0.03 400 16, at r 16")
+                      family="capacity", shape=f"G 16, nd 20, r {r}, k 400, error term",
+                      launches_path="euler 0.06 200 0.03 400 16, at r 16", **extra(f))
                 for r, f in wide_a.items()]
     kernels += [entry("cahbn_ensemble_screen", dict(f, launches=launches_b),
-                      family="runtime r and nu",
-                      shape=f"G 16, nd 20, r {r}, nu {nu}, k 80, error term",
-                      launches_path="heat 1.0 20 0.05 80 9, at r 9 and nu 2")
+                      family="capacity", shape=f"G 16, nd 20, r {r}, nu {nu}, k 80, error term",
+                      launches_path="heat 1.0 20 0.05 80 9, at r 9 and nu 2", **extra(f))
                 for (r, nu), f in wide_b.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -57,19 +57,52 @@
 // screening contract; nvcc's multiply-add contraction makes the results
 // differ from the CPU in the last bits.
 //
-// Above r = 8 or nu = 2 the row and the all-gathered Newton matrix no
-// longer fit in registers, and r and nu are launch arguments of a second
-// kernel, cahbn_screen_any_kernel (the runtime-dimension layout of
-// screen_common.cuh): one draw per warp, lane i owning rows i, i + 32,
-// ...; the state, the stage slopes, the Newton iterate, its residual and
-// step and the r x r Newton matrix (1 KB at r = 16) live in shared
-// memory, and the operator is staged there transposed where it fits.
-// Each lane assembles its rows of I - h gamma J column by column, in the
-// order of newton_row; the forward elimination updates the rows below a
-// pivot in parallel, each entry in the order of eliminate, and lane 0
-// runs the back substitution (IEEE divisions, div_rn). A draw whose state
-// turns NaN reports NaN to the end without integrating further, as the
-// templated kernel's retired draws do.
+// Three kernel families, chosen by (r, nu) in the wrapper
+// (ops/cahbn_screen.py::screen_family) and passed to the C entry, which
+// can be forced to any family that takes (r, nu):
+//
+// * templated, r 1..8 with nu 1..2: cahbn_screen_kernel<R, NU> above;
+// * capacity-templated, r <= 16 with nu <= 4: cahbn_screen_cap_kernel<RCAP,
+//   4>, RCAP 12 (r <= 12) and 16 (r 13..16);
+// * runtime-(r, nu), any r and nu: cahbn_screen_any_kernel, the path
+//   beyond those and the yardstick the capacity kernel is held against
+//   bit for bit (family "runtime" forces it at any (r, nu)).
+//
+// Beyond r = 8 or nu = 2 the row and the all-gathered Newton matrix no
+// longer fit in registers, so both other families give a draw a warp (the
+// capacity and runtime layouts of screen_common.cuh), lane i owning row
+// i, and W = nd warps per candidate. What bounds them is the dependent
+// chain of a Newton step (at (9, 2), (12, 2) and (6, 3) on the H100 the
+// capacity kernel takes 65-248x, the runtime kernel 360-940x the time of
+// its float32 work at the card's rate; chip_smoke.py phase 4b): the
+// right-hand side's d-term sum, the
+// Newton row, r pivots and r back substitutions, each in the reference's
+// order. The runtime kernel keeps the state, the stage slopes, the Newton
+// iterate and the r x r matrix in shared memory: every term of the chain
+// pays a shared-memory round trip through a runtime-strided view, every
+// pivot a __syncwarp(), and lane 0 alone runs the back substitution. The
+// capacity kernel takes (r, nu) at run time but unrolls every loop to
+// (RCAP, NUCAP): the state, the stage slopes and the iterate are
+// statically indexed registers replicated in the warp, and the operator
+// is staged in shared memory transposed with the compile-time row stride
+// RCAP (a coefficient load is the lane's base plus a constant; each
+// quadratic block is loaded while the previous one is summed). Every
+// branch on the dimensions or the lane is a convergence region (BSSY/BSYNC
+// in the SASS) that the chain waits on, so the design keeps them off the
+// chain (scripts/torch_screen_cycles.py splits a Newton step's cycles
+// between its parts): the right-hand
+// side predicates its linear and input terms and nests its quadratic
+// blocks; the Newton row forms all RCAP columns (the chains interleave;
+// columns j >= r are never read); the elimination keeps lane i's Newton
+// row and F[i] in registers, broadcasts row p and F[p] by unguarded
+// shuffles, lets every lane form inv = 1 / M[p][p], and has the lanes
+// below p update their own rows entry by entry, the others selecting their
+// old values; the back substitution keeps dk replicated, every lane sums
+// its own row in ascending j, lane i's sum goes through the IEEE division
+// (div_rn; the others divide 0 by 1) and a shuffle hands dk[i] to every
+// lane. The NaN retirement, the clip and max_keep_nan are the runtime
+// kernel's, and so are each row's arithmetic, the per-draw partial sums
+// and hence err_sq, to the bit.
 
 #include "screen_common.cuh"
 
@@ -538,36 +571,331 @@ cudaError_t launch_any(const float* Ohat, const float* q0, const float* t_eval,
   return cudaGetLastError();
 }
 
-// Instances r 1..8 with nu 1..2; anything above goes to the runtime kernel.
+// ---------------------------------------------------------------------------
+// The capacity-templated kernel (the capacity layout of screen_common.cuh):
+// r <= RCAP and nu <= NUCAP at run time, RCAP 12 and 16, NUCAP 4.
+
+// Capacity column offsets of the "cAHBN" operator blocks.
+template <int RCAP, int NUCAP>
+struct CapLayout {
+  static constexpr int kH = 1 + RCAP;
+  static constexpr int kB = kH + RCAP * (RCAP + 1) / 2;
+  static constexpr int kN = kB + NUCAP;
+  static constexpr int kD = kN + NUCAP * RCAP;  // columns
+};
+
+// The quadratic terms of blocks A, A + 1, ... (block a: the terms a, b for
+// b <= a) of this lane's row, added to acc in order while a < r; `cur`
+// holds block A's coefficients. Block A + 1's coefficients are loaded
+// before block A is summed, so the chain of multiply-adds does not wait on
+// shared memory; the blocks nest, so one branch skips all blocks from r
+// on.
+template <int RCAP, int NUCAP, int A>
+__device__ __forceinline__ void quad_blocks(const float* __restrict__ t, const float (&x)[RCAP],
+                                            int r, const float (&cur)[A + 1], float& acc) {
+  constexpr int H = CapLayout<RCAP, NUCAP>::kH;
+  const float xa = x[A];
+  if constexpr (A + 1 < RCAP) {
+    float nxt[A + 2];
+#pragma unroll
+    for (int b = 0; b <= A + 1; ++b) nxt[b] = t[(H + (A + 1) * (A + 2) / 2 + b) * RCAP];
+#pragma unroll
+    for (int b = 0; b <= A; ++b) acc += cur[b] * (xa * x[b]);
+    if (A + 1 < r) quad_blocks<RCAP, NUCAP, A + 1>(t, x, r, nxt, acc);
+  } else {
+#pragma unroll
+    for (int b = 0; b <= A; ++b) acc += cur[b] * (xa * x[b]);
+  }
+}
+
+// This lane's row of rhs(x, u) at run-time (r, nu), in the order of
+// rhs_any; column c of the row at t[c RCAP]. The linear and input terms
+// are predicated on the true dimensions, the quadratic blocks nested
+// (quad_blocks).
+template <int RCAP, int NUCAP>
+__device__ __forceinline__ float rhs_cap(const float* __restrict__ t, const float (&x)[RCAP],
+                                         const float (&u)[NUCAP], int r, int nu) {
+  using C = CapLayout<RCAP, NUCAP>;
+  float lin[RCAP], cur[1];
+#pragma unroll
+  for (int a = 0; a < RCAP; ++a) lin[a] = t[(1 + a) * RCAP];
+  cur[0] = t[C::kH * RCAP];
+  float acc = t[0];
+#pragma unroll
+  for (int a = 0; a < RCAP; ++a)
+    if (a < r) acc += lin[a] * x[a];
+  quad_blocks<RCAP, NUCAP, 0>(t, x, r, cur, acc);
+#pragma unroll
+  for (int e = 0; e < NUCAP; ++e) {
+    if (e < nu) {
+      float cn[RCAP];
+#pragma unroll
+      for (int a = 0; a < RCAP; ++a) cn[a] = t[(C::kN + e * RCAP + a) * RCAP];
+      const float ue = u[e];
+      acc += t[(C::kB + e) * RCAP] * ue;
+#pragma unroll
+      for (int a = 0; a < RCAP; ++a)
+        if (a < r) acc += cn[a] * (ue * x[a]);
+    }
+  }
+  return acc;
+}
+
+// This lane's row `row` of M = I - hg J(x, u), each column j < r in the
+// order of newton_row_any. Every capacity column is formed, so the RCAP
+// independent chains interleave with no branch between them; a column j >=
+// r sums zero coefficients (NaN where an x is infinite) and is never read:
+// eliminate_cap's back substitution reads m[j] only for j < r.
+template <int RCAP, int NUCAP>
+__device__ __forceinline__ void newton_row_cap(const float* __restrict__ t,
+                                               const float (&x)[RCAP], const float (&u)[NUCAP],
+                                               float hg, int r, int nu, int row,
+                                               float (&m)[RCAP]) {
+  using C = CapLayout<RCAP, NUCAP>;
+#pragma unroll
+  for (int j = 0; j < RCAP; ++j) {
+    constexpr int H = C::kH;
+    const int zj = H + j * (j + 1) / 2;
+    float col = t[(1 + j) * RCAP];
+#pragma unroll
+    for (int b = 0; b <= j; ++b) col += t[(zj + b) * RCAP] * x[b];
+    col += t[(zj + j) * RCAP] * x[j];
+#pragma unroll
+    for (int a = j + 1; a < RCAP; ++a)
+      if (a < r) col += t[(H + a * (a + 1) / 2 + j) * RCAP] * x[a];
+#pragma unroll
+    for (int e = 0; e < NUCAP; ++e)
+      if (e < nu) col += t[(C::kN + e * RCAP + j) * RCAP] * u[e];
+    m[j] = (row == j ? 1.f : 0.f) - hg * col;
+  }
+}
+
+// Solve M dk = F in the operation order of eliminate_any, without shared
+// memory or branches that split the warp: lane i < r holds its row m =
+// M[i, :] and f = F[i] in registers. For each pivot p, row p and F[p] are
+// broadcast by shuffles, every lane forms inv = 1 / M[p][p] itself, and
+// each lane i > p keeps its update of its own row, entry by entry (the
+// other lanes compute it and select their old values). The back
+// substitution keeps dk replicated: every lane sums its own row in
+// ascending j, lane i's sum is divided (the others divide 0 by 1, off the
+// IEEE division's slow path), and a shuffle hands dk[i] to every lane.
+// Entries j >= r of the rows are updated but never read.
+template <int RCAP>
+__device__ __forceinline__ void eliminate_cap(float (&m)[RCAP], float f, int r,
+                                              float (&dk)[RCAP]) {
+  const int lane = threadIdx.x;
+#pragma unroll
+  for (int p = 0; p < RCAP; ++p) {
+    if (p >= r) break;
+    float mp[RCAP];
+#pragma unroll
+    for (int j = p; j < RCAP; ++j) mp[j] = __shfl_sync(kFullMask, m[j], p);
+    const float fp = __shfl_sync(kFullMask, f, p);
+    const float inv = 1.f / mp[p];
+    const bool below = lane > p && lane < r;
+    const float fac = m[p] * inv;
+#pragma unroll
+    for (int j = p + 1; j < RCAP; ++j) {
+      const float v = m[j] - fac * mp[j];
+      m[j] = below ? v : m[j];
+    }
+    const float fv = f - fac * fp;
+    f = below ? fv : f;
+  }
+#pragma unroll
+  for (int i = RCAP - 1; i >= 0; --i) {
+    dk[i] = 0.f;
+    if (i < r) {
+      float acc = f;
+#pragma unroll
+      for (int j = i + 1; j < RCAP; ++j)
+        if (j < r) acc = acc - m[j] * dk[j];
+      const bool me = lane == i;
+      const float v = div_rn(me ? acc : 0.f, me ? m[i] : 1.f);
+      dk[i] = __shfl_sync(kFullMask, v, i);
+    }
+  }
+}
+
+template <int NUCAP>
+__device__ __forceinline__ void load_inputs_cap(const float* __restrict__ u_row, int nu,
+                                                float (&u)[NUCAP]) {
+#pragma unroll
+  for (int e = 0; e < NUCAP; ++e) u[e] = e < nu ? __ldg(u_row + e) : 0.f;
+}
+
+// Block (n, l) integrates draw n of problem l; lane i < r owns row i, and
+// the state, the stage slopes and the Newton iterate are replicated.
+template <int RCAP, int NUCAP>
+__global__ void __launch_bounds__(32)
+cahbn_screen_cap_kernel(const float* __restrict__ Ohat,      // (N, r, d)
+                        const float* __restrict__ q0,        // (L, r)
+                        const float* __restrict__ t_eval,    // (k,)
+                        const float* __restrict__ u_stages,  // (L, (k-1) substeps 3, nu)
+                        const float* __restrict__ shift,     // (L, r)
+                        const float* __restrict__ limits,    // (L, r)
+                        int r, int nu, int d, int N, int k, int substeps, int newton_iters,
+                        bool* __restrict__ stable,           // (L, N)
+                        float* __restrict__ partial) {       // (L, N, k, r) or null
+  using C = CapLayout<RCAP, NUCAP>;
+  extern __shared__ float T[];  // (C::kD, RCAP)
+  const int lane = threadIdx.x;
+  const int n = blockIdx.x;
+  const int l = blockIdx.y;
+  const int row = lane % RCAP;
+  const bool mine = lane < r;
+  const int hr = 1 + r, br = hr + r * (r + 1) / 2, nr = br + nu;
+  stage_capacity<RCAP>(Ohat, n, r, d, C::kD,
+                       [=](int z) {
+                         if (z < hr) return z;
+                         if (z < br) return z - hr + C::kH;
+                         if (z < nr) return z - br + C::kB;
+                         const int e = (z - nr) / r;
+                         return C::kN + e * RCAP + (z - nr - e * r);
+                       },
+                       T);
+  __syncwarp();
+  const float* t = T + row;
+  const float* u_p = u_stages + static_cast<size_t>(l) * (k - 1) * substeps * 3 * nu;
+  float* part = partial == nullptr ? nullptr
+                                   : partial + (static_cast<size_t>(l) * N + n) * k * r;
+  float q[RCAP];
+#pragma unroll
+  for (int j = 0; j < RCAP; ++j) q[j] = j < r ? q0[l * r + j] : 0.f;
+  float sh = 0.f, maxdev = 0.f;
+  if (mine) {
+    sh = shift[l * r + lane];
+    maxdev = fabsf(own<RCAP>(q, lane) - sh);
+    if (part != nullptr) part[lane] = own<RCAP>(q, lane);
+  }
+
+  float u[NUCAP], kk[RCAP], k1[RCAP], base[RCAP];
+  for (int s = 1; s < k; ++s) {
+    const float h = (t_eval[s] - t_eval[s - 1]) / static_cast<float>(substeps);
+    const float hg = h * kGamma;
+    const float h1 = h * kOneMinusGamma;
+    for (int sub = 0; sub < substeps; ++sub) {
+      const float* u0 = u_p + static_cast<size_t>((s - 1) * substeps + sub) * 3 * nu;
+      load_inputs_cap<NUCAP>(u0, nu, u);
+      gather_lanes<RCAP>(rhs_cap<RCAP, NUCAP>(t, q, u, r, nu), kk);
+#pragma unroll
+      for (int j = 0; j < RCAP; ++j) base[j] = q[j];
+      // Stage 1 Newton-solves k1 from the guess rhs(q), stage 2 k2 from k1.
+#pragma unroll 1
+      for (int stage = 0; stage < 2; ++stage) {
+        load_inputs_cap<NUCAP>(u0 + (1 + stage) * nu, nu, u);
+#pragma unroll 1
+        for (int it = 0; it < newton_iters; ++it) {
+          float x[RCAP], m[RCAP], dk[RCAP];
+#pragma unroll
+          for (int j = 0; j < RCAP; ++j) x[j] = base[j] + hg * kk[j];
+          const float F = own<RCAP>(kk, row) - rhs_cap<RCAP, NUCAP>(t, x, u, r, nu);
+          newton_row_cap<RCAP, NUCAP>(t, x, u, hg, r, nu, row, m);
+          eliminate_cap<RCAP>(m, F, r, dk);
+#pragma unroll
+          for (int j = 0; j < RCAP; ++j) kk[j] = kk[j] - dk[j];
+        }
+        if (stage == 0) {
+#pragma unroll
+          for (int j = 0; j < RCAP; ++j) {
+            k1[j] = kk[j];
+            base[j] = q[j] + h1 * k1[j];
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < RCAP; ++j)
+        q[j] = clip_keep_nan(q[j] + h * (kOneMinusGamma * k1[j] + kGamma * kk[j]));
+    }
+    bool nan_now = false;
+    if (mine) {
+      const float qi = own<RCAP>(q, lane);
+      maxdev = max_keep_nan(maxdev, fabsf(qi - sh));
+      if (part != nullptr) part[static_cast<size_t>(s) * r + lane] = qi;
+      nan_now = isnan(qi);
+    }
+    // A NaN reaches every row of the next right-hand side and stays: the
+    // draw reports NaN from here on.
+    if (__any_sync(kFullMask, nan_now)) {
+      const float nan = __int_as_float(0x7fc00000);
+      if (mine) {
+        maxdev = nan;
+        if (part != nullptr)
+          for (int t2 = s + 1; t2 < k; ++t2) part[static_cast<size_t>(t2) * r + lane] = nan;
+      }
+      break;
+    }
+  }
+
+  const bool ok = !mine || ((maxdev <= limits[l * r + lane]) && isfinite(maxdev));
+  const bool all = __all_sync(kFullMask, ok);
+  if (lane == 0) stable[static_cast<size_t>(l) * N + n] = all;
+}
+
+template <int RCAP, int NUCAP>
+cudaError_t launch_cap(const float* Ohat, const float* q0, const float* t_eval,
+                       const float* u_stages, const float* shift, const float* limits, int L,
+                       int N, int r, int nu, int k, int substeps, int newton_iters, bool* stable,
+                       float* partial, cudaStream_t stream) {
+  const int d = 1 + r + r * (r + 1) / 2 + nu + nu * r;
+  const size_t bytes = static_cast<size_t>(CapLayout<RCAP, NUCAP>::kD) * RCAP * sizeof(float);
+  cahbn_screen_cap_kernel<RCAP, NUCAP><<<dim3(N, L), 32, bytes, stream>>>(
+      Ohat, q0, t_eval, u_stages, shift, limits, r, nu, d, N, k, substeps, newton_iters, stable,
+      partial);
+  return cudaGetLastError();
+}
+
+// The three families, as the wrapper names them (ops/cahbn_screen.py).
+constexpr int kTemplated = 0;  // r <= 8, nu <= 2: cahbn_screen_kernel<R, NU>
+constexpr int kCapacity = 1;   // r <= 16, nu <= 4: cahbn_screen_cap_kernel<12 or 16, 4>
+constexpr int kRuntime = 2;    // any r and nu: cahbn_screen_any_kernel
 constexpr int kTemplatedMaxR = 8;  // the reference's SMALL_SOLVE_MAX
 constexpr int kTemplatedMaxNu = 2;
+constexpr int kCapacityMaxR = 16;
+constexpr int kCapacityMaxNu = 4;
 
 }  // namespace
 
-// Screens L problems in one launch. `partial` is scratch of L * G * W * k
-// * r floats, W = warps_per_candidate(r, nd) for the templated instances
-// (r <= 8 and nu <= 2) and W = nd for the runtime kernel (the wrapper
-// passes W, and it is checked); with `snaps` (L, r, k) non-null the draw
-// means' squared errors go to err_sq (L, G), else partial and err_sq are
-// not touched. Returns 0 on success, a cudaError_t code if a launch
-// failed, and -1 for r < 1 or nu < 1.
+// Screens L problems in one launch with the kernel of `family` (0: the
+// templated instances, r <= 8 with nu <= 2; 1: the capacity-templated
+// kernel, r <= 16 with nu <= 4, its capacity 12 or 16 chosen by r; 2: the
+// runtime-(r, nu) kernel, any r and nu). The wrapper chooses the family by
+// (r, nu) and can force one. `partial` is scratch of L * G * W * k * r
+// floats, W = warps_per_candidate(r, nd) for the templated instances and
+// W = nd for the others (the wrapper passes W, and it is checked); with
+// `snaps` (L, r, k) non-null the draw means' squared errors go to err_sq
+// (L, G), else partial and err_sq are not touched. Returns 0 on success,
+// a cudaError_t code if a launch failed, -1 for r < 1 or nu < 1 and -2
+// for a family that does not take (r, nu).
 extern "C" int gpboi_cahbn_screen(const float* Ohat, const float* q0, const float* t_eval,
                                   const float* u_stages, const float* shift,
                                   const float* limits, const float* snaps, int L, int N, int r,
                                   int nu, int nd, int W, int k, int substeps, int newton_iters,
-                                  bool* stable, float* partial, float* err_sq, void* stream) {
+                                  int family, bool* stable, float* partial, float* err_sq,
+                                  void* stream) {
   if (r < 1 || nu < 1) return -1;
-  const bool any = r > kTemplatedMaxR || nu > kTemplatedMaxNu;
+  if ((family != kTemplated && family != kCapacity && family != kRuntime) ||
+      (family == kTemplated && (r > kTemplatedMaxR || nu > kTemplatedMaxNu)) ||
+      (family == kCapacity && (r > kCapacityMaxR || nu > kCapacityMaxNu)))
+    return -2;
   if (L < 1 || L > 65535 || N < 1 || nd < 1 || nd > 32 || N % nd != 0 || k < 1 ||
-      substeps < 1 || newton_iters < 0 || W != (any ? nd : warps_per_candidate(r, nd)) ||
+      substeps < 1 || newton_iters < 0 ||
+      W != (family == kTemplated ? warps_per_candidate(r, nd) : nd) ||
       (snaps != nullptr && (partial == nullptr || err_sq == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = snaps != nullptr ? partial : nullptr;
   int rc;
-  if (any)
+  if (family == kRuntime)
     rc = static_cast<int>(launch_any(Ohat, q0, t_eval, u_stages, shift, limits, L, N, r, nu, k,
                                      substeps, newton_iters, stable, part, s));
+  else if (family == kCapacity)
+    rc = static_cast<int>(
+        r <= 12 ? launch_cap<12, kCapacityMaxNu>(Ohat, q0, t_eval, u_stages, shift, limits, L, N,
+                                                 r, nu, k, substeps, newton_iters, stable, part, s)
+                : launch_cap<16, kCapacityMaxNu>(Ohat, q0, t_eval, u_stages, shift, limits, L, N,
+                                                 r, nu, k, substeps, newton_iters, stable, part,
+                                                 s));
   else
     rc = nu == 1 ? launch_r<1>(r, Ohat, q0, t_eval, u_stages, shift, limits, L, N, nd, W, k,
                                substeps, newton_iters, stable, part, s)

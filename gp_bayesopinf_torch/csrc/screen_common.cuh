@@ -2,7 +2,7 @@
 // (quadratic_screen.cu, cahbn_screen.cu). Each kernel source includes
 // this header once; everything here has internal linkage.
 //
-// Two layouts. The templated instances of both kernels (r a template
+// Three layouts. The templated instances of both kernels (r a template
 // parameter, the operator row in registers) are row-parallel: a draw of an
 // r-state ROM takes a group of kLanes = (the power of two >= r) lanes of a
 // warp, lane i of the group owning row i of the draw's operator. A warp
@@ -11,7 +11,8 @@
 // spread over the SMs. Block (g W + w, l) is warp w of candidate g of
 // problem (trajectory) l. Lanes at or above r in a group, and groups past
 // the candidate's nd draws, take part in every shuffle and write nothing.
-// The runtime-dimension kernels take one warp per draw (below).
+// The runtime-dimension and the capacity-templated kernels take one warp
+// per draw (below).
 
 #pragma once
 
@@ -95,6 +96,47 @@ __device__ __forceinline__ OpView stage_operator(const float* __restrict__ Ohat,
     dst[(e - i * d) * r + i] = __ldg(src + e);
   }
   return OpView{dst, 1, r};
+}
+
+// ---------------------------------------------------------------------------
+// The capacity layout (the capacity-templated kernels of both sources,
+// between the templated instances and the runtime-dimension kernels): one
+// draw per warp, as in the runtime layout, with the true r (and nu) launch
+// arguments at most a compile-time capacity RCAP (and NUCAP). Lane i < r
+// owns row i. Every loop is unrolled to the capacity and guarded by the
+// true dimension, so the state, the stage vectors and (in B) the Newton
+// row are statically indexed registers; the state is replicated in the
+// warp by all-gathers of shuffles. The operator is staged in shared
+// memory transposed with the compile-time row stride RCAP (column c of
+// row i at T[c RCAP + i]), each column at its capacity position and zeros
+// between: a coefficient load is the lane's base address plus a constant,
+// and the warp's loads of one column hit consecutive words.
+
+// out[j] = the v of lane j, for every j < RCAP. The entries j >= r hold
+// what lanes r..RCAP-1 computed, which no reader uses: the shuffles are
+// not guarded by r, since a guarded shuffle is a convergence region of its
+// own (BSSY/BSYNC in the SASS) that the chain waits on.
+template <int RCAP>
+__device__ __forceinline__ void gather_lanes(float v, float (&out)[RCAP]) {
+#pragma unroll
+  for (int j = 0; j < RCAP; ++j) out[j] = __shfl_sync(kFullMask, v, j);
+}
+
+// Draw n's (r, d) operator into T (cols capacity columns of RCAP floats):
+// column z of the draw at capacity column cap(z), zeros elsewhere. The
+// copy reads the draw's r d floats in order (coalesced); the caller
+// synchronizes the warp before the first read.
+template <int RCAP, class ColumnMap>
+__device__ __forceinline__ void stage_capacity(const float* __restrict__ Ohat, size_t n, int r,
+                                               int d, int cols, ColumnMap cap, float* T) {
+  for (int e = threadIdx.x; e < cols * RCAP; e += 32) T[e] = 0.f;
+  __syncwarp();
+  const float* src = Ohat + n * r * d;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < r * d; e += 32) {
+    const int i = e / d;
+    T[cap(e - i * d) * RCAP + i] = __ldg(src + e);
+  }
 }
 
 // Where a thread sits in the screen grid.

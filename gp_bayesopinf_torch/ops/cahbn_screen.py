@@ -23,9 +23,12 @@ Two implementations with one contract, both float32:
 
 * ``cahbn_ensemble_screen_cuda``: the hand-written Hopper kernel
   ``csrc/cahbn_screen.cu`` (see its header for the design), all L
-  problems in one launch: templated instances up to
-  ``TEMPLATED_MAX_STATE`` modes and ``TEMPLATED_MAX_INPUT`` inputs, a
-  kernel that takes r and nu at run time beyond;
+  problems in one launch, by one of three kernel families chosen by
+  (r, nu) (``screen_family``): the templated instances up to
+  ``TEMPLATED_MAX_STATE`` modes with ``TEMPLATED_MAX_INPUT`` inputs, the
+  capacity-templated kernel up to ``CAPACITY_MAX_STATE`` modes (instances
+  ``CAPACITY_INSTANCES``) with ``CAPACITY_MAX_INPUT`` inputs, the
+  runtime-(r, nu) kernel beyond; ``family=`` forces one;
 * ``cahbn_ensemble_screen_torch``: the plain PyTorch version, batched
   (N, r) states with the XLA twin's algorithm, one problem after another.
 
@@ -43,8 +46,11 @@ import torch
 
 from .ensemble_screen import (
     DIVERGE_CAP,
+    FAMILIES,
     MAX_DRAWS_PER_CANDIDATE,
+    capacity_instance as _capacity_instance,
     check_tensors,
+    pick_family,
     problem_count,
     warps_per_candidate,
 )
@@ -52,14 +58,41 @@ from .quadratic import ckron_indices, ckron_jacobian_pattern
 from ..solve.ivp import GAMMA, solve_small
 
 #: The largest r and nu of kernel B's templated instances (the row and the
-#: Newton matrix in registers; r up to the reference's SMALL_SOLVE_MAX);
-#: beyond either the runtime-(r, nu) kernel screens.
+#: Newton matrix in registers; r up to the reference's SMALL_SOLVE_MAX).
 TEMPLATED_MAX_STATE = 8
 TEMPLATED_MAX_INPUT = 2
+#: The capacities of the capacity-templated kernel (r and nu at most a
+#: capacity at run time, the smallest state instance that holds r); beyond
+#: either largest, the runtime-(r, nu) kernel screens.
+CAPACITY_INSTANCES = (12, 16)
+CAPACITY_MAX_STATE = CAPACITY_INSTANCES[-1]
+CAPACITY_MAX_INPUT = 4
 
 #: Kernel launches made by ``cahbn_ensemble_screen_cuda`` in this process.
 #: Callers may reset it to 0 to count the launches of one run.
 launches = 0
+#: The same launches by kernel family (``FAMILIES``), reset with it.
+family_launches = dict.fromkeys(FAMILIES, 0)
+
+
+def screen_family(r: int, nu: int, family: Optional[str] = None) -> str:
+    """The kernel family that screens state dimension r with nu inputs:
+    ``"templated"`` for r <= ``TEMPLATED_MAX_STATE`` with nu <=
+    ``TEMPLATED_MAX_INPUT``, else ``"capacity"`` for r <=
+    ``CAPACITY_MAX_STATE`` with nu <= ``CAPACITY_MAX_INPUT``, else
+    ``"runtime"``; ``family`` forces one, which must take (r, nu). Raises
+    ValueError otherwise."""
+    if r < 1 or nu < 1:
+        raise ValueError(f"need r and nu >= 1, got r={r}, nu={nu}")
+    fits = {"templated": r <= TEMPLATED_MAX_STATE and nu <= TEMPLATED_MAX_INPUT,
+            "capacity": r <= CAPACITY_MAX_STATE and nu <= CAPACITY_MAX_INPUT,
+            "runtime": True}
+    return pick_family(f"r={r}, nu={nu}", fits, family)
+
+
+def capacity_instance(r: int) -> int:
+    """The capacity the C entry picks for r: the smallest instance >= r."""
+    return _capacity_instance(r, CAPACITY_INSTANCES)
 
 
 def input_stage_times(t_eval: torch.Tensor, substeps: int) -> torch.Tensor:
@@ -172,7 +205,7 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("cahbn_screen")
     fn = lib.gpboi_cahbn_screen
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return lib
 
@@ -180,11 +213,18 @@ def _library() -> ctypes.CDLL:
 def cahbn_ensemble_screen_cuda(
     Ohat, q0, t_eval, shift, limits, u_stages, snapshots=None, nd: int = 20,
     substeps: int = 2, newton_iters: int = 6, track_error: bool = True,
+    family: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Hopper kernel; same arguments and results as
     ``cahbn_ensemble_screen``, but every tensor must be a contiguous
     float32 tensor on one CUDA device. One launch for all problems.
-    Raises on anything the kernel does not take and on a failed launch."""
+    Raises on anything the kernel does not take and on a failed launch.
+
+    ``family`` forces a kernel family (``screen_family``), which must take
+    (r, nu): ``"runtime"`` takes the runtime-(r, nu) kernel at every
+    dimension, and ``"capacity"`` the capacity-templated one at every
+    dimension it holds, so that ``chip_smoke.py`` holds each against the
+    others."""
     global launches
     dev = Ohat.device
     if dev.type != "cuda":
@@ -195,6 +235,7 @@ def cahbn_ensemble_screen_cuda(
     N, r, d = Ohat.shape
     nu = u_stages.shape[-1]
     k = t_eval.shape[0]
+    family = screen_family(r, nu, family)
     if d != 1 + r + r * (r + 1) // 2 + nu + nu * r:
         raise ValueError(f"Ohat has d={d} columns; a 'cAHBN' ROM with r={r}, "
                          f"nu={nu} has {1 + r + r * (r + 1) // 2 + nu + nu * r}")
@@ -218,8 +259,8 @@ def cahbn_ensemble_screen_cuda(
         tensors["snapshots"] = (snapshots, lead + (r, k))
     check_tensors(tensors, dev)
 
-    templated = r <= TEMPLATED_MAX_STATE and nu <= TEMPLATED_MAX_INPUT
-    n_prob, G, W = L or 1, N // nd, warps_per_candidate(r, nd, templated)
+    n_prob, G = L or 1, N // nd
+    W = warps_per_candidate(r, nd, templated=family == "templated")
     stable = torch.empty((n_prob, N), dtype=torch.bool, device=dev)
     err_sq = torch.zeros((n_prob, G), dtype=torch.float32, device=dev)
     partial = torch.empty(n_prob * G * W * k * r if track else 0, dtype=torch.float32, device=dev)
@@ -228,13 +269,15 @@ def cahbn_ensemble_screen_cuda(
         rc = lib.gpboi_cahbn_screen(
             Ohat.data_ptr(), q0.data_ptr(), t_eval.data_ptr(), u_stages.data_ptr(),
             shift.data_ptr(), limits.data_ptr(), snapshots.data_ptr() if track else None,
-            n_prob, N, r, nu, nd, W, k, substeps, newton_iters, stable.data_ptr(),
+            n_prob, N, r, nu, nd, W, k, substeps, newton_iters, FAMILIES.index(family),
+            stable.data_ptr(),
             partial.data_ptr() if track else None, err_sq.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"cahbn_screen launch failed: error {rc}")
     launches += 1
+    family_launches[family] += 1
     return (stable[0], err_sq[0]) if L is None else (stable, err_sq)
 
 

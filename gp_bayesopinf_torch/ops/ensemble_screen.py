@@ -21,8 +21,12 @@ contract; posteriors and final ensembles stay float64):
 
 * ``quadratic_ensemble_screen_cuda``: the hand-written Hopper kernel
   ``csrc/quadratic_screen.cu`` (see its header for the design), all L
-  problems in one launch: templated instances up to
-  ``TEMPLATED_MAX_STATE`` modes, a kernel that takes r at run time above;
+  problems in one launch, by one of three kernel families chosen by r
+  (``screen_family``): the templated instances up to
+  ``TEMPLATED_MAX_STATE`` modes, the capacity-templated kernel up to
+  ``CAPACITY_MAX_STATE`` (instances ``CAPACITY_INSTANCES``), the
+  runtime-r kernel above; ``family=`` forces one (``"runtime"`` is the
+  yardstick the others are held against on the card);
 * ``quadratic_ensemble_screen_torch``: the plain PyTorch version, a
   batched (N, r) RK4 with a feature concat and an einsum, one problem
   after another.
@@ -42,25 +46,63 @@ from .quadratic import ckron_indices
 
 DIVERGE_CAP = 1e6  # must dominate any stability envelope
 MAX_DRAWS_PER_CANDIDATE = 32  # the kernels' limit, as the reference's
-#: The largest r of kernel A's templated instances (the row in registers);
-#: above it the runtime-r kernel screens.
+#: The largest r of kernel A's templated instances (the row in registers).
 TEMPLATED_MAX_STATE = 12
+#: The capacities of the capacity-templated kernel (r <= capacity at run
+#: time, the smallest instance that holds r); above the largest, the
+#: runtime-r kernel screens.
+CAPACITY_INSTANCES = (16, 32)
+CAPACITY_MAX_STATE = CAPACITY_INSTANCES[-1]
+#: The kernel families of both screens, by the code their C entries take.
+FAMILIES = ("templated", "capacity", "runtime")
 
 #: Kernel launches made by ``quadratic_ensemble_screen_cuda`` in this
 #: process. Callers may reset it to 0 to count the launches of one run.
 launches = 0
+#: The same launches by kernel family (``FAMILIES``), reset with it.
+family_launches = dict.fromkeys(FAMILIES, 0)
 
 
 def warps_per_candidate(r: int, nd: int, templated: bool = True) -> int:
     """Warps that a candidate's nd draws take in the kernels' layouts
     (``csrc/screen_common.cuh``). The templated instances give each draw
     the power of two >= r lanes, one per operator row, several draws to a
-    warp; the runtime-dimension kernels give each draw a warp of its own,
-    so the count is nd."""
+    warp; the capacity-templated and runtime-dimension kernels give each
+    draw a warp of its own, so the count is nd."""
     if not templated:
         return nd
     lanes = 1 << (r - 1).bit_length()
     return -(-nd // max(32 // lanes, 1))
+
+
+def pick_family(dims: str, fits: Dict[str, bool], family: Optional[str]) -> str:
+    """The first family of ``FAMILIES`` whose dimensions fit (``fits``
+    maps each to whether it takes ``dims``), or ``family`` when given,
+    which must fit. Raises ValueError otherwise."""
+    if family is None:
+        return next(f for f in FAMILIES if fits[f])
+    if family not in FAMILIES:
+        raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
+    if not fits[family]:
+        raise ValueError(f"the {family} kernel does not take {dims}")
+    return family
+
+
+def screen_family(r: int, family: Optional[str] = None) -> str:
+    """The kernel family that screens state dimension r: ``"templated"``
+    up to ``TEMPLATED_MAX_STATE``, ``"capacity"`` up to
+    ``CAPACITY_MAX_STATE``, ``"runtime"`` above; ``family`` forces one,
+    which must take r. Raises ValueError otherwise."""
+    if r < 1:
+        raise ValueError(f"need r >= 1, got {r}")
+    fits = {"templated": r <= TEMPLATED_MAX_STATE, "capacity": r <= CAPACITY_MAX_STATE,
+            "runtime": True}
+    return pick_family(f"r={r}", fits, family)
+
+
+def capacity_instance(r: int, instances: Tuple[int, ...] = CAPACITY_INSTANCES) -> int:
+    """The capacity the C entry picks for r: the smallest instance >= r."""
+    return next(c for c in instances if r <= c)
 
 
 def problem_count(q0: torch.Tensor, per_problem: Dict[str, Tuple[Optional[torch.Tensor], int]]):
@@ -168,24 +210,25 @@ def _library() -> ctypes.CDLL:
     from .build import load_library
 
     lib = load_library("quadratic_screen")
-    for fn in (lib.gpboi_quadratic_screen, lib.gpboi_quadratic_screen_any_r):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
-        fn.restype = ctypes.c_int
+    fn = lib.gpboi_quadratic_screen
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
     return lib
 
 
 def quadratic_ensemble_screen_cuda(
     Ohat, q0, t_eval, shift, limits, snapshots=None, nd: int = 20,
-    substeps: int = 4, track_error: bool = True, any_r: bool = False,
+    substeps: int = 4, track_error: bool = True, family: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Hopper kernel; same arguments and results as
     ``quadratic_ensemble_screen``, but every tensor must be a contiguous
     float32 tensor on one CUDA device. One launch for all problems.
     Raises on anything the kernel does not take and on a failed launch.
 
-    ``any_r`` takes the runtime-r kernel at every r, which otherwise
-    screens only above ``TEMPLATED_MAX_STATE``: ``chip_smoke.py`` holds
-    it against the templated instances with it."""
+    ``family`` forces a kernel family (``screen_family``), which must take
+    r: ``"runtime"`` takes the runtime-r kernel at every r, and
+    ``"capacity"`` the capacity-templated one at every r it holds, so
+    that ``chip_smoke.py`` holds each against the others."""
     global launches
     dev = Ohat.device
     if dev.type != "cuda":
@@ -193,6 +236,7 @@ def quadratic_ensemble_screen_cuda(
     if Ohat.ndim != 3 or Ohat.shape[1] < 1:
         raise ValueError(f"Ohat must be (N, r, d) with r >= 1, got {tuple(Ohat.shape)}")
     N, r, d = Ohat.shape
+    family = screen_family(r, family)
     k = t_eval.shape[0]
     if d != 1 + r + r * (r + 1) // 2:
         raise ValueError(f"Ohat has d={d} columns; a 'cAH' ROM with r={r} has "
@@ -214,24 +258,24 @@ def quadratic_ensemble_screen_cuda(
         tensors["snapshots"] = (snapshots, lead + (r, k))
     check_tensors(tensors, dev)
 
-    any_r = any_r or r > TEMPLATED_MAX_STATE
-    n_prob, G, W = L or 1, N // nd, warps_per_candidate(r, nd, templated=not any_r)
+    n_prob, G = L or 1, N // nd
+    W = warps_per_candidate(r, nd, templated=family == "templated")
     stable = torch.empty((n_prob, N), dtype=torch.bool, device=dev)
     err_sq = torch.zeros((n_prob, G), dtype=torch.float32, device=dev)
     partial = torch.empty(n_prob * G * W * k * r if track else 0, dtype=torch.float32, device=dev)
     lib = _library()
-    screen = lib.gpboi_quadratic_screen_any_r if any_r else lib.gpboi_quadratic_screen
     with torch.cuda.device(dev):
-        rc = screen(
+        rc = lib.gpboi_quadratic_screen(
             Ohat.data_ptr(), q0.data_ptr(), t_eval.data_ptr(), shift.data_ptr(),
             limits.data_ptr(), snapshots.data_ptr() if track else None,
-            n_prob, N, r, nd, W, k, substeps, stable.data_ptr(),
+            n_prob, N, r, nd, W, k, substeps, FAMILIES.index(family), stable.data_ptr(),
             partial.data_ptr() if track else None, err_sq.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"quadratic_screen launch failed: error {rc}")
     launches += 1
+    family_launches[family] += 1
     return (stable[0], err_sq[0]) if L is None else (stable, err_sq)
 
 

@@ -12,8 +12,13 @@ kernel table: kernel A (RK4 "cAH") at the Euler ex1a screen shapes (G =
 (SDIRK2 "cAHBN") at the heat ex3 ones (G = 16, nd = 20, r = 5, nu = 2, 4
 substeps, 6 Newton steps; k = 80 with the error term and k = 500 without)
 and, where the version's wrappers take several problems at once, the
-same with L = 2 (A) and L = 5 (B) problems in one call. Inputs are made
-from a seed; every draw decays, so no draw takes a kernel's slow paths.
+same with L = 2 (A) and L = 5 (B) problems in one call; then the state
+dimensions above the templated instances, where the version's wrappers
+take them: kernel A at r = 13, 16 and 24 (k = 400 with the error term),
+kernel B at (r, nu) = (9, 2), (12, 2) and (6, 3) (k = 80 with the error
+term) and at (9, 2) with k = 500, no error term and L = 5 (the heat
+search's other grid). Inputs are made from a seed; every draw decays, so
+no draw takes a kernel's slow paths.
 Each process prints one JSON line: the card, the version and the
 milliseconds per call of each case.
 """
@@ -108,6 +113,37 @@ def worker(root: str, reps: int) -> None:
                     *args, nd=nd, substeps=4, newton_iters=6, track_error=track))
             except ValueError:
                 pass
+    # Above the templated instances (a version without them raises).
+    for r in (13, 16, 24):
+        d = 1 + r + r * (r + 1) // 2
+        args = (operators(r, d, G * nd), t(0.5 * rng.standard_normal(r)), tA, t(np.zeros(r)),
+                t(np.full(r, 10.0)), t(0.2 * rng.standard_normal((r, 400))))
+        try:
+            times[f"A r={r} k=400"] = ms(
+                lambda: es.quadratic_ensemble_screen_cuda(*args, nd=nd, substeps=8))
+        except ValueError:
+            pass
+    for r, nu, k, t_max, L in ((9, 2, 80, 1.0, 0), (12, 2, 80, 1.0, 0), (6, 3, 80, 1.0, 0),
+                               (9, 2, 500, 2.0, 5)):
+        t64 = torch.linspace(0.0, t_max, k, dtype=torch.float64, device=dev)
+        ts = cs.input_stage_times(t64, 4)
+
+        def inputs():
+            a, b, c = rng.uniform(-2.0, 2.0, 3)
+            return t(torch.stack([a * torch.sin(2 * np.pi * ts), b * torch.sin(4 * np.pi * ts),
+                                  c * torch.sin(6 * np.pi * ts)][:nu], -1))
+
+        track = k == 80
+        d = 1 + r + r * (r + 1) // 2 + nu + nu * r
+        args = (operators(r, d, G * nd), per_problem(L, lambda: t(0.5 * rng.standard_normal(r))),
+                t(t64), per_problem(L, lambda: t(np.zeros(r))),
+                per_problem(L, lambda: t(np.full(r, 10.0))), per_problem(L, inputs),
+                per_problem(L, lambda: t(0.2 * rng.standard_normal((r, k)))) if track else None)
+        try:
+            times[f"B r={r} nu={nu} k={k} L={L or 1}"] = ms(lambda: cs.cahbn_ensemble_screen_cuda(
+                *args, nd=nd, substeps=4, newton_iters=6, track_error=track))
+        except ValueError:
+            pass
     print(json.dumps({"card": card(), "version": root, "ms": times}), flush=True)
 
 

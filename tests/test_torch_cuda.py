@@ -36,9 +36,11 @@ def _case(r, G, nd, k, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("r,G,nd", [(6, 4, 20), (3, 5, 7), (12, 2, 32), (13, 3, 20), (16, 2, 7)])
+@pytest.mark.parametrize("r,G,nd", [(6, 4, 20), (3, 5, 7), (12, 2, 32), (13, 3, 20), (16, 2, 7),
+                                    (24, 2, 7), (33, 2, 7)])
 def test_kernel_matches_plain(cuda, r, G, nd):
-    """Templated instances (r <= 12) and the runtime-r kernel (r = 13, 16)."""
+    """Templated instances (r <= 12), the capacity-templated kernel (r =
+    13, 16, 24) and the runtime-r kernel (r = 33)."""
     args = _case(r, G, nd, 40, cuda)
     before = es.launches
     s_k, e_k = es.quadratic_ensemble_screen(*args, nd=nd, substeps=4)
@@ -173,10 +175,46 @@ def test_runtime_r_kernel_matches_templated(cuda):
     """The runtime-r kernel forced at r = 6: the templated instance's flags."""
     args = [a.float().contiguous() for a in _case(6, 4, 20, 40, cuda)]
     s_t, e_t = es.quadratic_ensemble_screen_cuda(*args, nd=20)
-    s_a, e_a = es.quadratic_ensemble_screen_cuda(*args, nd=20, any_r=True)
+    s_a, e_a = es.quadratic_ensemble_screen_cuda(*args, nd=20, family="runtime")
     assert torch.equal(s_a, s_t)
     ok = s_t.reshape(4, 20).all(dim=1)
     torch.testing.assert_close(e_a[ok], e_t[ok], rtol=1e-3, atol=0.0)
+
+
+def _assert_same_bits(s_new, e_new, s_old, e_old):
+    """Identical flags, err_sq bit for bit (NaN where the other is NaN)."""
+    assert torch.equal(s_new, s_old)
+    assert torch.equal(torch.isnan(e_new), torch.isnan(e_old))
+    fin = ~torch.isnan(e_new)
+    assert torch.equal(e_new[fin].view(torch.int32), e_old[fin].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,G,nd,L", [(13, 3, 20, 1), (16, 2, 7, 2), (17, 2, 7, 1), (32, 2, 5, 2)])
+def test_capacity_kernel_matches_runtime_kernel(cuda, r, G, nd, L):
+    """The capacity-templated kernel keeps the runtime-r kernel's order of
+    arithmetic and per-draw sums: the same flags and err_sq to the bit."""
+    args = [a.float().contiguous() for a in _case(r, G, nd, 40, cuda)]
+    if L > 1:
+        args = [a.float().contiguous() for a in _batched(args, L, (1, 3, 4, 5), r)]
+    before = dict(es.family_launches)
+    s_c, e_c = es.quadratic_ensemble_screen_cuda(*args, nd=nd, substeps=4)
+    assert es.family_launches["capacity"] == before["capacity"] + 1
+    s_r, e_r = es.quadratic_ensemble_screen_cuda(*args, nd=nd, substeps=4, family="runtime")
+    torch.cuda.synchronize()
+    _assert_same_bits(s_c, e_c, s_r, e_r)
+
+
+@pytest.mark.gpu
+def test_capacity_kernel_matches_templated(cuda):
+    """The capacity-templated kernel forced at r = 6: the templated
+    instance's flags."""
+    args = [a.float().contiguous() for a in _case(6, 4, 20, 40, cuda)]
+    s_t, e_t = es.quadratic_ensemble_screen_cuda(*args, nd=20)
+    s_c, e_c = es.quadratic_ensemble_screen_cuda(*args, nd=20, family="capacity")
+    assert torch.equal(s_c, s_t)
+    ok = s_t.reshape(4, 20).all(dim=1)
+    torch.testing.assert_close(e_c[ok], e_t[ok], rtol=1e-3, atol=0.0)
 
 
 def _cahbn_case(r, nu, G, nd, k, substeps, device):
@@ -197,9 +235,10 @@ def _cahbn_case(r, nu, G, nd, k, substeps, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("r,nu,G,nd", [(5, 2, 4, 20), (3, 2, 5, 7), (8, 1, 3, 32), (9, 2, 3, 20),
-                                       (10, 2, 2, 7), (6, 3, 3, 20)])
+                                       (10, 2, 2, 7), (6, 3, 3, 20), (13, 4, 2, 7), (17, 1, 2, 7)])
 def test_cahbn_kernel_matches_plain(cuda, r, nu, G, nd):
-    """Templated instances (r <= 8, nu <= 2) and the runtime-(r, nu) kernel."""
+    """Templated instances (r <= 8, nu <= 2), the capacity-templated kernel
+    (r <= 16, nu <= 4) and the runtime-(r, nu) kernel (r = 17)."""
     args = _cahbn_case(r, nu, G, nd, 30, 2, cuda)
     before = cs.launches
     s_k, e_k = cs.cahbn_ensemble_screen(*args, nd=nd, substeps=2)
@@ -280,3 +319,43 @@ def test_cahbn_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="r and nu >= 1"):
         cs.cahbn_ensemble_screen_cuda(empty, zeros, args[2], zeros, zeros + 1, args[5],
                                       nd=4, substeps=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,nu,G,nd,L", [(9, 2, 3, 20, 1), (12, 2, 2, 7, 2), (6, 3, 3, 20, 1),
+                                         (16, 4, 2, 5, 1)])
+def test_capacity_cahbn_kernel_matches_runtime_kernel(cuda, r, nu, G, nd, L):
+    """The capacity-templated kernel keeps the runtime kernel's order of
+    arithmetic and per-draw sums: the same flags and err_sq to the bit."""
+    args = [a.float().contiguous() for a in _cahbn_case(r, nu, G, nd, 30, 2, cuda)]
+    if L > 1:
+        args = [a.float().contiguous() for a in _batched(args, L, (1, 3, 4, 5, 6), r)]
+    before = dict(cs.family_launches)
+    s_c, e_c = cs.cahbn_ensemble_screen_cuda(*args, nd=nd, substeps=2)
+    assert cs.family_launches["capacity"] == before["capacity"] + 1
+    s_r, e_r = cs.cahbn_ensemble_screen_cuda(*args, nd=nd, substeps=2, family="runtime")
+    torch.cuda.synchronize()
+    _assert_same_bits(s_c, e_c, s_r, e_r)
+
+
+@pytest.mark.gpu
+def test_capacity_cahbn_kernel_matches_templated(cuda):
+    """The capacity-templated kernel forced at r = 5, nu = 2: the templated
+    instance's flags."""
+    args = [a.float().contiguous() for a in _cahbn_case(5, 2, 4, 20, 30, 2, cuda)]
+    s_t, e_t = cs.cahbn_ensemble_screen_cuda(*args, nd=20, substeps=2)
+    for family in ("capacity", "runtime"):
+        s_a, e_a = cs.cahbn_ensemble_screen_cuda(*args, nd=20, substeps=2, family=family)
+        assert torch.equal(s_a, s_t)
+        ok = s_t.reshape(4, 20).all(dim=1)
+        torch.testing.assert_close(e_a[ok], e_t[ok], rtol=1e-3, atol=0.0)
+
+
+@pytest.mark.gpu
+def test_forced_family_refusals(cuda):
+    args = [a.float() for a in _case(13, 2, 4, 10, cuda)]
+    with pytest.raises(ValueError, match="templated kernel does not take r=13"):
+        es.quadratic_ensemble_screen_cuda(*args, nd=4, family="templated")
+    args = [a.float() for a in _cahbn_case(3, 3, 2, 4, 10, 2, cuda)]
+    with pytest.raises(ValueError, match="templated kernel does not take r=3, nu=3"):
+        cs.cahbn_ensemble_screen_cuda(*args, nd=4, substeps=2, family="templated")
