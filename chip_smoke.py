@@ -72,6 +72,22 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    launch counts show it; hold the randomized POD against the exact
    spectrum, and the low-rank root against the dense eigh root on a
    handful of the run's modes at m' = 2048;
+mesh. the multi-device layer (``gp_bayesopinf_torch.parallel``), after
+   phase 9: (a) one rank spawned on cuda:0 with NCCL runs ``run_scaled`` at
+   its defaults on ``make_mesh({"draw": 1, "mode": 1})``, held against phase
+   9's one-device run (the grid's rejections and argmin, lambda inside the
+   grid bracket, the stable share, singular values to 1e-4 of the largest,
+   hyperparameters to 1e-3 in their logarithm; which stages are equal to
+   the bit is printed); (b) two ranks share cuda:0 through gloo (NCCL takes
+   one rank a card, so the backend is named and printed): the ex1a search
+   of phase 5's run (G 81, nd 20, r 6, k 401 and 400) through kernel A on
+   {"draw": 2}, its grid errors and lambda equal to the one-device
+   search's to the bit on both ranks, each rank's kernel A launches beside
+   the one-device search's, then ``run_scaled`` at its defaults on
+   {"draw": 2, "mode": 1}, equal on both ranks, its walls, collectives and
+   decisions printed beside the one-device run's under phase 9's gates;
+   (c) ``python -m gp_bayesopinf_torch.pipeline.cli scaled --devices 1``
+   (m' cut to 512) prints one JSON line;
 10. one smaller windowed run (Euler source, 4 windows, "cAH", a scaled
     column-norm Tikhonov matrix) so that path touches the card: finite
     outputs only, no accuracy gate;
@@ -732,7 +748,8 @@ def run_counted(argv, kernel):
 
 
 def pipeline_phase():
-    """Phase 5; returns the kernel A launches of the run."""
+    """Phase 5; returns the kernel A launches of the run and its search's
+    inputs (``ex1a_search_inputs``) for phase ``mesh``."""
     from gp_bayesopinf_torch.pipeline import ensemble_error
 
     res, wall, launches, evals = run_counted(EX1A, "quadratic_ensemble_screen")
@@ -751,7 +768,34 @@ def pipeline_phase():
     assert bool(torch.isfinite(res.draws_compressed[res.valid]).all())
     assert bool(torch.isfinite(res.draws).all())
     assert err < 0.5, f"ensemble-mean error {err:.4f}"
-    return launches
+    return launches, ex1a_search_inputs(res)
+
+
+def ex1a_search_inputs(res):
+    """The regularization search of an ex1a run as NumPy arrays: the
+    weighted factorization rebuilt from its GPs (r 6, m' 400, d 28), the
+    time grids (k 401 and 400), the GP state estimates, the 81-point grid
+    and the search's standard normals (drawn here, seed 0)."""
+    from gp_bayesopinf_torch.gp.gp import regression_weights
+    from gp_bayesopinf_torch.pipeline.configs import EulerConfig
+    from gp_bayesopinf_torch.solve import weighted_lstsq_fit
+
+    st = torch.stack([gp.state_estimate for gp in res.gps])
+    roots, chol = regression_weights([[gp] for gp in res.gps])
+    fac = weighted_lstsq_fit(res.rom.data_matrix(st)[None], roots,
+                             torch.stack([gp.ddt_estimate for gp in res.gps])[:, None],
+                             weights_are_cholesky=chol)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    grid = EulerConfig().reg_grid
+    shape = (20, fac.num_problems, fac.num_unknowns)
+    host = lambda x: x.cpu().numpy()  # noqa: E731
+    return dict(
+        fac=[host(x) for x in fac], st=host(st), t_pred=res.time_domain, t_est=res.t_estimation,
+        grid=grid, substeps=res.rom.substeps,
+        xi_grid=host(torch.randn((len(grid),) + shape, generator=gen, dtype=torch.float64,
+                                 device="cuda")),
+        xi_refine=host(torch.randn(shape, generator=gen, dtype=torch.float64, device="cuda")),
+    )
 
 
 def heat_phase():
@@ -960,7 +1004,7 @@ def scaled_phase():
         assert resid < 5e-3 and rel < 5e-3, (mode, resid, rel)
         torch.testing.assert_close(low[i].ddt_estimate, dense.ddt_estimate[i], rtol=1e-8,
                                    atol=1e-8 * float(dense.ddt_estimate[i].abs().max()))
-    return wall
+    return wall, res
 
 
 def windowed_phase():
@@ -1216,6 +1260,190 @@ def checkpoint_phase():
     shutil.rmtree(ckpt)
 
 
+# Phase mesh (c): the command line's multi-device path, cut in depth (m'
+# 2048 -> 512, as phase 12) since phase mesh (a) runs the defaults.
+MESH_CLI = ["scaled", "--devices", "1", "--mprime", "512", "--quiet", "--device", "cuda"]
+
+
+def scaled_digest(res):
+    """The values of a ``ScaledResult`` that phase ``mesh`` compares."""
+    return dict(regularizer=res.regularizer, stable_fraction=res.stable_fraction,
+                train_error=res.train_error, grid_errors=res.grid_errors, svdvals=res.svdvals,
+                hyperparameters=res.hyperparameters, ensemble_mean=res.ensemble_mean,
+                stages=dict(res.stage_seconds))
+
+
+def mesh_scaled_rank(rank, shape):
+    """A rank of phase ``mesh``: ``run_scaled`` at its defaults on a mesh of
+    ``shape`` on this rank's card; its digest, wall and collectives."""
+    import torch.distributed as dist
+
+    from gp_bayesopinf_torch.parallel import make_mesh
+    from gp_bayesopinf_torch.parallel import mesh as pmesh
+    from gp_bayesopinf_torch.pipeline import run_scaled
+
+    mesh = make_mesh(shape, "cuda")
+    pmesh.collectives, pmesh.collective_seconds = 0, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_scaled(mesh=mesh, device="cuda")
+    torch.cuda.synchronize()
+    return dict(scaled_digest(res), wall=time.perf_counter() - t0, collectives=pmesh.collectives,
+                collective_seconds=pmesh.collective_seconds, backend=dist.get_backend(),
+                card=torch.cuda.current_device())
+
+
+def search_args(search):
+    """``auto_regularize``'s arguments for ``ex1a_search_inputs`` on the card."""
+    from gp_bayesopinf_torch.rom import GalerkinROM
+    from gp_bayesopinf_torch.solve.lstsq import WeightedLSTSQ
+
+    cuda = lambda x: torch.as_tensor(x, device="cuda")  # noqa: E731
+    fac = WeightedLSTSQ(*map(cuda, search["fac"]))
+    st = cuda(search["st"])
+    rom = GalerkinROM("cAH", state_dimension=st.shape[0], substeps=search["substeps"])
+    args = (fac, rom, st[:, 0], cuda(search["t_pred"]), cuda(search["t_est"]), st)
+    kw = dict(grid=search["grid"], ndraws=20, verbose=False, xi_grid=cuda(search["xi_grid"]),
+              xi_refine=cuda(search["xi_refine"]))
+    return args, kw
+
+
+def mesh_pair_rank(rank, search):
+    """A rank of phase ``mesh`` (b), two on one card: the ex1a search on
+    {"draw": 2}, its kernel A launches counted from 0, then ``run_scaled``
+    at its defaults on {"draw": 2, "mode": 1}."""
+    from gp_bayesopinf_torch.bayes import auto_regularize
+    from gp_bayesopinf_torch.ops import ensemble_screen
+    from gp_bayesopinf_torch.parallel import make_mesh
+
+    args, kw = search_args(search)
+    mesh = make_mesh({"draw": 2}, "cuda")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = auto_regularize(*args, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()["quadratic_ensemble_screen"]
+    search_out = dict(grid_errors=res.grid_errors, regularizer=res.regularizer,
+                      refined=res.refined, launches=launches, wall=wall,
+                      families=dict(ensemble_screen.family_launches))
+    return dict(search=search_out, scaled=mesh_scaled_rank(rank, {"draw": 2, "mode": 1}))
+
+
+def compare_scaled(tag, res, one, strict):
+    """Print a mesh run's decisions and stage values beside one device's.
+    Every run holds phase 9's gates (stable share >= 0.7, a finite mean,
+    train error < 2). ``strict`` also holds the stated tolerances of a run
+    whose sums over ranks are one device's (world 1): singular values to
+    1e-4 of the largest, hyperparameters to 1e-3 in their logarithm, the
+    grid's rejections and argmin, lambda within the grid bracket of one
+    device's best, the stable share within 0.02. Where ranks sum the
+    float32 POD's products, the GP fits' flat optima and the search may
+    carry the roundoff further: printed, not held."""
+    from gp_bayesopinf_torch.pipeline.scaled.search import REJECTED
+
+    sv, sv1 = res["svdvals"], one["svdvals"]
+    dsv = float(np.abs(sv - sv1).max() / sv1[0])
+    dhyp = float(np.abs(np.log(res["hyperparameters"] / one["hyperparameters"])).max())
+    dmean = float(np.linalg.norm(res["ensemble_mean"] - one["ensemble_mean"])
+                  / np.linalg.norm(one["ensemble_mean"]))
+    same = {k: bool(np.array_equal(res[k], one[k])) for k in
+            ("svdvals", "hyperparameters", "grid_errors", "ensemble_mean")}
+    print(f"[mesh] {tag}: lambda {res['regularizer']:.6e} (one device {one['regularizer']:.6e}), "
+          f"stable fraction {res['stable_fraction']:.4f} ({one['stable_fraction']:.4f}), train "
+          f"error {res['train_error']:.5f} ({one['train_error']:.5f}); singular values within "
+          f"{dsv:.2e} of the largest, log hyperparameters within {dhyp:.2e}, ensemble mean "
+          f"{dmean:.2e} relative; equal to the bit: {same}", flush=True)
+    assert res["stable_fraction"] >= 0.7 and res["train_error"] < 2.0
+    assert np.isfinite(res["ensemble_mean"]).all()
+    if not strict:
+        return
+    errs, errs1 = res["grid_errors"], one["grid_errors"]
+    assert np.array_equal(errs >= REJECTED, errs1 >= REJECTED), (errs, errs1)
+    ibest = int(np.argmin(errs1))
+    assert int(np.argmin(errs)) == ibest, (errs, errs1)
+    grid = np.logspace(-12, 6, len(errs1))
+    lo, hi = grid[max(ibest - 1, 0)], grid[min(ibest + 1, len(grid) - 1)]
+    assert lo <= res["regularizer"] <= hi, (res["regularizer"], lo, hi)
+    assert abs(res["stable_fraction"] - one["stable_fraction"]) <= 0.02
+    assert dsv < 1e-4 and dhyp < 1e-3, (dsv, dhyp)
+
+
+def mesh_phase(search, scaled_res):
+    """Phase ``mesh``: the multi-device layer on the card. (a) one rank on
+    cuda:0 through NCCL runs ``run_scaled`` at its defaults on {"draw": 1,
+    "mode": 1} beside phase 9's one-device run; (b) two ranks share cuda:0
+    through gloo (NCCL takes one rank a card): the ex1a search on {"draw":
+    2} through kernel A, grid errors and lambda equal to the one-device
+    search's to the bit and each rank's kernel A launches beside the
+    one-device search's, then ``run_scaled`` at its defaults on {"draw": 2,
+    "mode": 1}; (c) ``scaled --devices 1`` through the command line, one
+    JSON line. Returns the kernel A launches of (b)'s ranks."""
+    from gp_bayesopinf_torch.bayes import auto_regularize
+    from gp_bayesopinf_torch.parallel import spawn
+
+    one = scaled_digest(scaled_res)
+    t0 = time.perf_counter()
+    (a,) = spawn(mesh_scaled_rank, 1, ["cuda:0"], args=({"draw": 1, "mode": 1},), timeout=600)
+    print(f"[mesh] (a) one rank on cuda:{a['card']}, backend {a['backend']}: spawn and run "
+          f"{time.perf_counter() - t0:.2f} s, run_scaled {a['wall']:.2f} s ({a['collectives']} "
+          f"collectives, {a['collective_seconds']:.3f} s); stages (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in a["stages"].items()), flush=True)
+    compare_scaled("(a) world 1 against one device", a, one, strict=True)
+
+    args, kw = search_args(search)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res1 = auto_regularize(*args, **kw)
+    torch.cuda.synchronize()
+    wall1, launches1 = time.perf_counter() - t0, read_launches()["quadratic_ensemble_screen"]
+    t0 = time.perf_counter()
+    pair = spawn(mesh_pair_rank, 2, ["cuda:0", "cuda:0"], backend="gloo", args=(search,),
+                 timeout=900)
+    print(f"[mesh] (b) two ranks share cuda:0 through backend {pair[0]['scaled']['backend']} "
+          f"(NCCL takes one rank a card): spawn and run {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for rank, out in enumerate(pair):
+        srch = out["search"]
+        print(f"[mesh] (b) rank {rank}: ex1a search {srch['wall']:.3f} s (one device "
+              f"{wall1:.3f} s), kernel A launches {srch['launches']} (one device {launches1}; by "
+              f"family {srch['families']}), lambda {srch['regularizer']:.6e} (one device "
+              f"{res1.regularizer:.6e})", flush=True)
+        assert np.array_equal(srch["grid_errors"], res1.grid_errors), "grid errors differ"
+        assert srch["regularizer"] == res1.regularizer and srch["refined"] == res1.refined
+        assert 0 < srch["launches"] < launches1
+    print(f"[mesh] (b) the {len(res1.grid_errors)}-point grid's errors and lambda equal one "
+          f"device's to the bit on both ranks ({int((res1.grid_errors < 1e12).sum())} candidates "
+          "accepted)", flush=True)
+    for rank, out in enumerate(pair):
+        sc = out["scaled"]
+        print(f"[mesh] (b) rank {rank}: run_scaled on {{'draw': 2, 'mode': 1}} {sc['wall']:.2f} s "
+              f"(one device {sum(one['stages'].values()):.2f} s of stages), "
+              f"{sc['collectives']} collectives {sc['collective_seconds']:.3f} s; stages (s): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sc["stages"].items()), flush=True)
+        assert sc["regularizer"] == pair[0]["scaled"]["regularizer"]
+        assert np.array_equal(sc["ensemble_mean"], pair[0]["scaled"]["ensemble_mean"])
+    compare_scaled("(b) world 2 against one device", pair[0]["scaled"], one, strict=False)
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gp_bayesopinf_torch.pipeline.cli"] + MESH_CLI,
+                          cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, f"scaled --devices 1 exited {proc.returncode}:\n" \
+        f"{proc.stderr[-4000:]}"
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1, lines
+    summary = json.loads(lines[0])
+    print(f"[mesh] (c) {' '.join(MESH_CLI)}: {time.perf_counter() - t0:.2f} s, {lines[0]}",
+          flush=True)
+    assert summary["regularizer"] > 0 and summary["stable_fraction"] >= 0.7
+    return sum(out["search"]["launches"] for out in pair)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1248,7 +1476,7 @@ def main() -> int:
     wide_a = phase("kernel A, capacity", capacity_a_phase)
     fields["cahbn_ensemble_screen"] = phase("kernel B", cahbn_phase)
     wide_b = phase("kernel B, capacity", capacity_b_phase)
-    fields["quadratic_ensemble_screen"]["launches"] = phase("ex1a", pipeline_phase)
+    fields["quadratic_ensemble_screen"]["launches"], ex1a_search = phase("ex1a", pipeline_phase)
     fields["cahbn_ensemble_screen"]["launches"] = phase("ex3", heat_phase)
     # Kernel A carries several main paths: its launches are those of all runs.
     seird_launches, seird_res = phase("seird", seird_phase)
@@ -1260,7 +1488,9 @@ def main() -> int:
         "euler r=16", wide_phase, EULER16, "quadratic_ensemble_screen", 16)}
     wide_launches["cahbn_ensemble_screen"] = phase(
         "heat r=9", wide_phase, HEAT9, "cahbn_ensemble_screen", 9)
-    phase("scaled", scaled_phase)
+    _, scaled_res = phase("scaled", scaled_phase)
+    by_path["mesh"] = phase("mesh", mesh_phase, ex1a_search, scaled_res)
+    del ex1a_search, scaled_res
     phase("scaled, 4 windows", windowed_phase)
     phase("scaled, 8 local windows", local_phase)
     by_path["serve"] = phase("serve", serve_phase, seird_res, seird_launches)

@@ -23,9 +23,13 @@ takes the same RK4 screen through a ``KernelScreenSpec`` and an
 Any other ROM form ("cA", "cAHBN" with rk4, ...), and any ROM under
 ``use_kernel=False``, takes the generic objective: ``rom.predict`` on the
 candidates' draws, all candidates of a chunk in one batched integration,
-with the integrators' 1e18 clip in place of the kernels' 1e6. The JAX
-package spreads that batch over a device mesh (``_mesh_sharded_grid``);
-on one card it is the same call.
+with the integrators' 1e18 clip in place of the kernels' 1e6.
+
+With a ``mesh`` the grid's chunks are split over one of its axes (the
+JAX package's ``_mesh_sharded_grid``): each rank screens one chunk of one
+device's, through the same objective, kernels included, and the errors
+are gathered. The refinement runs on every rank, and rank 0's choice is
+broadcast.
 """
 
 import logging
@@ -37,6 +41,7 @@ import torch
 
 from ..ops.cahbn_screen import cahbn_ensemble_screen, input_stage_times
 from ..ops.ensemble_screen import quadratic_ensemble_screen
+from ..parallel.mesh import axis_index, axis_size, broadcast_from_first, gather_leading_axis
 from ..solve.ivp import stability_mask
 from ..solve.lstsq import WeightedLSTSQ
 
@@ -182,6 +187,8 @@ def auto_regularize(
     operator_map: Optional[Callable] = None,
     use_kernel: Optional[bool] = None,
     screen_dtype: Optional[torch.dtype] = None,
+    mesh=None,
+    mesh_axis: str = "draw",
 ) -> RegSearchResult:
     """Select the regularization hyperparameter lambda.
 
@@ -218,6 +225,14 @@ def auto_regularize(
         even then; True raises where the ROM is not eligible.
     screen_dtype : for the generic objective, the precision of the
         screen's integrations (default: the factorization's).
+    mesh, mesh_axis : a mesh (``parallel.mesh.make_mesh``) whose axis
+        ``mesh_axis`` splits the grid: 16 candidates a rank, one chunk of
+        one device's each (the whole grid where it has fewer), padded by
+        wrapping; a rank past the grid's end screens a wrapped copy, which
+        is discarded. Every rank passes the same arguments and draws (the
+        grid's are drawn in their global shape) and gets the same result.
+        Each objective call sees the batch that one device's call would,
+        so the grid errors are one device's to the bit.
     """
     if refine_failure not in ("fallback", "raise"):
         raise ValueError("refine_failure must be 'fallback' or 'raise'")
@@ -271,10 +286,21 @@ def auto_regularize(
             )
         grid_t = torch.as_tensor(grid, dtype=dtype, device=dev)
         width = min(CHUNK, G)
+        ranks = 1 if mesh is None else axis_size(mesh, mesh_axis)
+
+        def chunk(s):  # one device's chunk from candidate s, wrap padded
+            idx = torch.as_tensor(np.arange(s, s + width) % G, device=dev)
+            return objective(grid_t[idx], xi_grid[idx])
+
         parts = []
-        for s in range(0, G, width):
-            idx = torch.as_tensor(np.arange(s, s + width) % G, device=dev)  # wrap pad
-            parts.append(objective(grid_t[idx], xi_grid[idx])[: min(width, G - s)])
+        for s in range(0, G, width * ranks):
+            if mesh is None:
+                errs = chunk(s)
+            else:
+                mine = chunk(s + width * axis_index(mesh, mesh_axis))
+                errs = gather_leading_axis(torch.as_tensor(mine, device=dev)[None], mesh,
+                                           mesh_axis).flatten().cpu().numpy()
+            parts.append(errs[: min(width * ranks, G - s)])
         grid_errors = np.concatenate(parts)
         if verbose:
             for lam, e in zip(grid, grid_errors):
@@ -311,8 +337,14 @@ def auto_regularize(
     opt = scipy.optimize.minimize_scalar(
         host_objective, method="bounded", bounds=np.log10(bounds)
     )
-    if opt.success and opt.fun < MAXOPTVAL:
-        chosen, refined = float(10.0**opt.x), True
+    x, refined = opt.x, bool(opt.success and opt.fun < MAXOPTVAL)
+    if mesh is not None:  # no rank may diverge on a last bit
+        x, ok = broadcast_from_first(
+            torch.tensor([x, refined], dtype=torch.float64, device=dev), mesh
+        ).tolist()
+        x, refined = np.float64(x), bool(ok)
+    if refined:
+        chosen = float(10.0**x)
         logging.info(f"Best regularization via optimization: {chosen:.4e}")
         if verbose:
             print(f"Best regularization via optimization: {chosen:.4e}")

@@ -5,7 +5,9 @@ A checkpoint is a directory holding one ``state.pt``: ``torch.save`` of a
 dict of tensors (the state) and a dict of plain Python values (the
 metadata). It is written to a temporary file and renamed, so an
 interrupted save leaves the previous checkpoint whole, and loaded with
-``weights_only=True``, so loading runs no pickled code.
+``weights_only=True``, so loading runs no pickled code. In a process group
+(``parallel.distributed``) every rank saves the same state: rank 0 writes
+it and the others wait for it at a barrier.
 """
 
 import os
@@ -13,6 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils.device import DeviceLike
 
@@ -21,15 +24,20 @@ _FILE = "state.pt"
 
 def save_checkpoint(path: str, state: Dict[str, torch.Tensor], metadata: Optional[Dict] = None):
     """Save ``state`` (name -> tensor, on any device) and ``metadata``
-    into the directory ``path``, replacing what it held."""
-    os.makedirs(path, exist_ok=True)
-    payload = {
-        "state": {k: v.detach().cpu() for k, v in state.items()},
-        "metadata": dict(metadata or {}),
-    }
-    tmp = os.path.join(path, f"{_FILE}.{os.getpid()}.tmp")
-    torch.save(payload, tmp)
-    os.replace(tmp, os.path.join(path, _FILE))
+    into the directory ``path``, replacing what it held; in a process
+    group only rank 0 writes, and every rank returns once it has."""
+    grouped = dist.is_initialized()
+    if not grouped or dist.get_rank() == 0:
+        os.makedirs(path, exist_ok=True)
+        payload = {
+            "state": {k: v.detach().cpu() for k, v in state.items()},
+            "metadata": dict(metadata or {}),
+        }
+        tmp = os.path.join(path, f"{_FILE}.{os.getpid()}.tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, os.path.join(path, _FILE))
+    if grouped:
+        dist.barrier()
 
 
 def has_checkpoint(path: str) -> bool:

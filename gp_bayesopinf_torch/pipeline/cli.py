@@ -7,14 +7,17 @@
         [--ddtdata] ... (the flags of seird but --crosscheck)
     gpboi-torch heat T_MAX NUM_SAMPLES NOISE NUM_PTS NUM_MODES ...
     gpboi-torch scaled [--source euler] [--windows W] [--regularization blocked] \\
-        [--weights lowrank] [--checkpoint-dir DIR] ... [--device DEVICE]
+        [--weights lowrank] [--checkpoint-dir DIR] ... [--devices N] [--device DEVICE]
     gpboi-torch serve
     gpboi-torch warmup [seird euler heat] [--ndraws N] [--device DEVICE]
 
 (or ``python -m gp_bayesopinf_torch.pipeline.cli ...``). ``scaled`` is the
 production-scale pipeline (``pipeline.scaled.run_scaled``; its defaults
 are n = 6000, 10,000 snapshots, 30 modes, m' = 2048) and prints a JSON
-summary line. The paper's runs are ``seird 90 90 0.10 360`` (ODE ex1a),
+summary line; ``--devices N`` spreads it over N ranks, one a device
+(``cuda:0`` to ``cuda:N-1``, or N CPU ranks under ``--device cpu``), on the
+JAX package's mesh ("mode" 2 when N is even), and prints rank 0's line.
+The paper's runs are ``seird 90 90 0.10 360`` (ODE ex1a),
 ``euler 0.06 200 0.03 400 6`` (ex1a; ex1c with 3200 points) and ``heat 1.0
 20 0.05 80 5`` (ex3), each with ``--ndraws 600``. ``--device`` defaults to
 ``cuda`` and does not fall back to the CPU.
@@ -151,16 +154,56 @@ def _add_scaled(subs):
                      "applied through its Cholesky factor)")
     sub.add_argument("--checkpoint-dir",
                      help="save the front half (data, POD, GP fit) here, or resume from it")
+    sub.add_argument("--devices", type=int, default=0,
+                     help="spread the run over N ranks, one a device: cuda:0..N-1, or N CPU "
+                     "ranks under --device cpu (0: one device, no process group)")
     sub.add_argument("--quiet", action="store_true")
     sub.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
 
-def run_scaled_args(args):
-    """Run the scaled pipeline on parsed arguments; returns its result."""
+def _rank_devices(device, n: int) -> list:
+    """The devices of ``--devices n`` under ``--device device``."""
+    import torch
+
+    dev = torch.device(device)
+    if n < 0 or dev.index is not None:
+        raise ValueError(f"--devices {n} with --device {device}: give a count >= 0 and the "
+                         "device type only (cuda or cpu)")
+    if dev.type != "cuda":
+        return [str(dev)] * n
+    count = torch.cuda.device_count()
+    if n > count:
+        raise ValueError(f"--devices {n} asks for {n} CUDA devices; torch.cuda.device_count() "
+                         f"is {count}")
+    return [f"cuda:{i}" for i in range(n)]
+
+
+def _scaled_rank(rank, args, shape, devices):
+    """One rank of ``scaled --devices N``: the run on the mesh ``shape``;
+    rank 0 returns its result."""
+    import torch
+
+    from ..parallel import make_mesh
+
+    mesh = make_mesh(shape, torch.device(devices[rank]).type)
+    res = run_scaled_args(args, mesh=mesh, device=devices[rank])
+    return res if rank == 0 else None
+
+
+def run_scaled_args(args, mesh=None, device=None):
+    """Run the scaled pipeline on parsed arguments; returns its result
+    (with ``--devices N``, rank 0's)."""
     import numpy as np
 
     from .scaled import run_scaled
 
+    if args.devices and mesh is None:
+        from ..parallel import spawn
+
+        devices = _rank_devices(args.device, args.devices)
+        mode = 2 if args.devices % 2 == 0 else 1
+        shape = {"draw": args.devices // mode, "mode": mode}
+        return spawn(_scaled_rank, args.devices, devices, args=(args, shape, devices))[0]
     gamma = None
     if args.regularization == "gamma":
         gamma = args.tikhonov_gamma
@@ -174,7 +217,8 @@ def run_scaled_args(args):
         regularization=args.regularization, time_windows=args.time_windows,
         window_chaining=args.window_chaining, window_basis=args.window_basis,
         tikhonov_gamma=gamma, weight_method=args.weight_method,
-        checkpoint_dir=args.checkpoint_dir, verbose=not args.quiet, device=args.device,
+        checkpoint_dir=args.checkpoint_dir, verbose=not args.quiet, mesh=mesh,
+        device=device or args.device,
     )
 
 

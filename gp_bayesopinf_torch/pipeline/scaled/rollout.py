@@ -18,47 +18,63 @@ With local window bases each window has its own envelope, and a state
 crossing a boundary goes into the next window's coordinates by the exact
 transfer q' = T_w q + b_w (``search.transfer_maps``); with one basis the
 transfer is the identity.
+
+With a mesh each rank integrates its block of the draws over "draw"; the
+stable means and shares come from sums and counts over all ranks.
 """
 
 from typing import Tuple
 
 import torch
 
+from ...parallel.mesh import all_reduce_sum, shard_leading_axis
 from ...solve.ivp import stability_mask
 from .search import WindowProblem, rollout
 
 
-def _stable_mean(sols: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-    """Mean over the leading draw axis of the draws flagged ``ok``."""
-    keep = ok[(...,) + (None,) * (sols.ndim - ok.ndim)]
-    count = torch.clamp(ok.sum(dim=0), min=1)[(...,) + (None,) * (sols.ndim - ok.ndim)]
-    return torch.where(keep, sols, 0.0).sum(dim=0) / count
+def _stable_mean(sols: torch.Tensor, ok: torch.Tensor, mesh=None):
+    """Mean over the leading draw axis of the draws flagged ``ok``, and
+    their share; with a mesh, over every rank's draws."""
+    lift = (...,) + (None,) * (sols.ndim - ok.ndim)
+    total = torch.where(ok[lift], sols, 0.0).sum(dim=0)
+    counts = torch.stack([ok.sum(dim=0), torch.full_like(ok[0], ok.shape[0], dtype=torch.long)])
+    if mesh is not None:
+        total, counts = all_reduce_sum(total, mesh, "draw"), all_reduce_sum(counts, mesh, "draw")
+    share = counts[0].sum().to(sols.dtype) / counts[1].sum()
+    return total / torch.clamp(counts[0], min=1)[lift], share
 
 
-def final_ensemble(problem: WindowProblem, params, xi) -> Tuple[torch.Tensor, float]:
+def final_ensemble(problem: WindowProblem, params, xi, mesh=None) -> Tuple[torch.Tensor, float]:
     """The anchored ensemble: every window from its GP-estimate initial
-    state. ``xi`` (ndraws, W r, d). Returns the (W, r, mw) means of each
-    window's stable draws and the share of stable (draw, window) pairs."""
+    state. ``xi`` (ndraws, W r, d), all the draws (with a mesh each rank
+    integrates its block). Returns the (W, r, mw) means of each window's
+    stable draws and the share of stable (draw, window) pairs."""
+    if mesh is not None:
+        xi = shard_leading_axis(xi, mesh, "draw")
     sols = problem.integrate(problem.sample(params, xi))  # (n, W, r, mw)
     ok = stability_mask(sols, problem.shift, problem.limits)  # (n, W)
-    return _stable_mean(sols, ok), float(ok.to(sols.dtype).mean())
+    mean, share = _stable_mean(sols, ok, mesh)
+    return mean, float(share)
 
 
-def chain_mean(problem: WindowProblem, ohat: torch.Tensor) -> torch.Tensor:
-    """Ensemble-mean handoff over (n, W, r, d) draws: (W, r, mw) means."""
+def chain_mean(problem: WindowProblem, ohat: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Ensemble-mean handoff over (n, W, r, d) draws (with a mesh, this
+    rank's block): (W, r, mw) means."""
     q = problem.states_w[0, :, 0]
     means = []
     for w in range(problem.tw.shape[0]):
         sols = rollout(problem.rom, ohat[:, w : w + 1], q[None], problem.tw[w : w + 1])[:, 0]
         ok = stability_mask(sols, *problem.envelope(w))  # (n,)
-        means.append(_stable_mean(sols, ok))
+        means.append(_stable_mean(sols, ok, mesh)[0])
         q = problem.hand_over(w, means[-1][:, -1])
     return torch.stack(means)
 
 
-def chain_draws(problem: WindowProblem, ohat: torch.Tensor) -> Tuple[torch.Tensor, float]:
-    """Draw-wise propagation with boundary rescue over (n, W, r, d) draws:
-    ((W, r, mw) means of each window's stable draws, mean stable share).
+def chain_draws(problem: WindowProblem, ohat: torch.Tensor,
+                mesh=None) -> Tuple[torch.Tensor, float]:
+    """Draw-wise propagation with boundary rescue over (n, W, r, d) draws
+    (with a mesh, this rank's block): ((W, r, mw) means of each window's
+    stable draws, mean stable share).
 
     Requiring stability over the whole span would keep no draw over many
     windows (each draw's own operators compound the drift of its initial
@@ -69,10 +85,10 @@ def chain_draws(problem: WindowProblem, ohat: torch.Tensor) -> Tuple[torch.Tenso
     for w in range(problem.tw.shape[0]):
         sols = rollout(problem.rom, ohat[:, w : w + 1], qs[:, None], problem.tw[w : w + 1])[:, 0]
         ok = stability_mask(sols, *problem.envelope(w))  # (n,)
-        mean = _stable_mean(sols, ok)
+        mean, share = _stable_mean(sols, ok, mesh)
         qs = problem.hand_over(w, torch.where(ok[:, None], sols[:, :, -1], mean[None, :, -1]))
         means.append(mean)
-        fracs.append(ok.to(sols.dtype).mean())
+        fracs.append(share)
     return torch.stack(means), float(torch.stack(fracs).mean())
 
 

@@ -16,6 +16,18 @@ products); the GP fit, the GP estimation, the weighting and the
 factorization are float64; the regularization screen integrates in
 float32, like the screens of the other pipelines (it only gates
 stability and ranks candidates); the final ensembles are float64 again.
+
+With a mesh (``parallel.mesh.make_mesh`` with axes "draw" and "mode", one
+rank a device) every rank runs ``run_scaled`` with the same arguments and
+returns the same result. Every random number is drawn in its global shape
+on every rank, so that the ranks split world 1's numbers: the snapshot
+rows over the whole mesh (randomized POD, the compressed snapshots), the
+GP fits and the TSQR's problems over "mode", the TSQR's rows, the grid's
+candidates and the ensembles' draws over "draw". The GP estimation, the
+refinement and the chained rollouts' bookkeeping run on every rank; the
+refinement's decision is rank 0's, broadcast. Sums over ranks run in
+another order than on one device, so a mesh changes the numbers at
+roundoff.
 """
 
 import dataclasses
@@ -25,9 +37,12 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from ...gp.fit import FitResult, fit_gp_hyperparameters
+from ...gp.fit import FitResult, fit_gp_hyperparameters, initial_z
 from ...gp.nlml import BoxTransform
 from ...io.checkpoint import has_checkpoint, load_checkpoint, pipeline_stage_state, save_checkpoint
+from ...parallel.mesh import (
+    all_reduce_sum, axis_size, broadcast_from_first, gather_leading_axis, shard_leading_axis,
+)
 from ...parallel.sharded import randomized_pod, tall_skinny_svd
 from ...rom import GalerkinROM
 from ...solve.lstsq import WeightedLSTSQ
@@ -94,7 +109,7 @@ class ScaledNormals:
 
 def _check_arguments(
     regularization, modelform, tikhonov_gamma, time_windows, num_regression_points,
-    window_chaining, window_basis, mesh, n_snapshots, num_gp_samples,
+    window_chaining, window_basis, mesh, n_snapshots, num_gp_samples, num_modes, dev,
 ):
     if regularization not in ("scalar", "blocked", "gamma"):
         raise ValueError(f"unknown regularization '{regularization}'")
@@ -121,9 +136,12 @@ def _check_arguments(
         if num_gp_samples % time_windows:
             raise ValueError("num_gp_samples must divide into time_windows")
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh (more than one card) is not ported: ROADMAP queue 1, item 12"
-        )
+        if not {"draw", "mode"} <= set(mesh.mesh_dim_names):
+            raise ValueError(f"the mesh needs the axes 'draw' and 'mode', has {mesh.mesh_dim_names}")
+        if num_modes % axis_size(mesh, "mode"):
+            raise ValueError("num_modes must divide the 'mode' mesh axis")
+        if mesh.device_type != dev.type:
+            raise ValueError(f"a '{mesh.device_type}' mesh for a run on '{dev}'")
 
 
 def _normals(shape, given, generator, dtype, device):
@@ -144,20 +162,37 @@ def _snapshots(stage, gens, given, dev, data_source, n_space, n_snapshots, r):
         raise ValueError(f"unknown data_source '{data_source}'")
 
 
-def _fit(ts, Y, gens, n_restarts, z0):
-    """The batched GP fit of the rows of ``Y`` at the times ``ts``."""
+def _fit(ts, Y, gens, n_restarts, z0, mesh):
+    """The batched GP fit of the rows of ``Y`` at the times ``ts``; with a
+    mesh each rank fits its block of rows (modes) over "mode", from its
+    block of the starts drawn for all rows, and the fits are gathered."""
     # 32 restarts: 8 left ~10% of the modes in the all-noise optimum of the
     # likelihood at the production scale.
     box = BoxTransform.from_bounds(
         (1e-5, 1e5), (1e-3, 1e2), (1e-10, 1e2), device=Y.device, dtype=torch.float64
     )
-    return fit_gp_hyperparameters(
-        ts, Y, box, gens["fit"], n_restarts=n_restarts, adam_steps=150, polish_iters=30, z0=z0,
-    )
+    kw = dict(n_restarts=n_restarts, adam_steps=150, polish_iters=30)
+    if mesh is None:
+        return fit_gp_hyperparameters(ts, Y, box, gens["fit"], z0=z0, **kw)
+    if z0 is None:
+        z0 = initial_z(box, Y.shape[0], n_restarts, gens["fit"])
+    mine = lambda x: shard_leading_axis(x, mesh, "mode")  # noqa: E731
+    fit = fit_gp_hyperparameters(ts, mine(Y), box, z0=mine(z0), **kw)
+    return FitResult(*gather_leading_axis(torch.stack(fit, dim=1), mesh, "mode").unbind(1))
+
+
+def _project(basis, centered, mesh):
+    """basis^T centered, (r, k); with a mesh each rank's rows, summed."""
+    if mesh is None:
+        return basis.T @ centered
+    space = mesh.mesh_dim_names
+    rows = lambda x: shard_leading_axis(x, mesh, space)  # noqa: E731
+    return all_reduce_sum(rows(basis).T @ rows(centered), mesh, space)
 
 
 def _compress_and_fit(
-    stage, gens, given, dev, data_source, n_space, n_snapshots, r, num_gp_samples, n_restarts
+    stage, gens, given, dev, data_source, n_space, n_snapshots, r, num_gp_samples, n_restarts,
+    mesh=None,
 ):
     """The front half: snapshots, POD, the GP samples and the batched GP
     fit. Returns (ts (m,) sample times, Y (r, m) compressed samples,
@@ -167,8 +202,11 @@ def _compress_and_fit(
 
     with stage("pod", "randomized POD"):
         centered = states - states.mean(dim=1, keepdim=True)
-        basis, svdvals = randomized_pod(centered, r, generator=gens["pod"], Omega=given.sketch)
-        compressed = basis.T @ centered  # (r, k)
+        basis, svdvals = randomized_pod(
+            centered, r, mesh=mesh, row_axis=None if mesh is None else mesh.mesh_dim_names,
+            generator=gens["pod"], Omega=given.sketch,
+        )
+        compressed = _project(basis, centered, mesh)  # (r, k)
 
     t_all = np.linspace(0.0, 1.0, n_snapshots)
     sample_idx = given.sample_idx
@@ -179,7 +217,7 @@ def _compress_and_fit(
     Y = compressed[:, torch.as_tensor(sample_idx, device=dev)].to(f64)  # (r, m)
 
     with stage("gp_fit", "GP fit"):
-        fit = _fit(ts, Y, gens, n_restarts, given.z0)
+        fit = _fit(ts, Y, gens, n_restarts, given.z0, mesh)
     return ts, Y, svdvals, fit
 
 
@@ -200,7 +238,7 @@ def _orthonormal(basis: torch.Tensor) -> torch.Tensor:
 
 def _compress_and_fit_local(
     stage, gens, given, dev, data_source, n_space, n_snapshots, r, num_gp_samples, n_restarts,
-    W,
+    W, mesh=None,
 ):
     """The front half with local window bases (the ``window_basis="local"``
     branch of the reference's ``run_scaled``): each window's block of k/W
@@ -227,18 +265,18 @@ def _compress_and_fit_local(
             mu = block.mean(dim=1, keepdim=True)
             centered = block - mu
             basis, sv = randomized_pod(
-                centered, r, generator=gens["pod"],
-                Omega=None if given.sketch is None else given.sketch[w],
+                centered, r, mesh=mesh, row_axis=None if mesh is None else mesh.mesh_dim_names,
+                generator=gens["pod"], Omega=None if given.sketch is None else given.sketch[w],
             )
             basis = _orthonormal(basis)
             bases.append(basis)
             mus.append(mu[:, 0])
             svs.append(sv)
-            Ys.append((basis.T @ centered)[:, torch.as_tensor(idx[w], device=dev)])
+            Ys.append(_project(basis, centered, mesh)[:, torch.as_tensor(idx[w], device=dev)])
     Y = torch.stack(Ys).to(f64)  # (W, r, m/W)
     with stage("gp_fit", "GP fit per window"):
-        fits = [_fit(ts[w], Y[w], gens, n_restarts, None if given.z0 is None else given.z0[w])
-                for w in range(W)]
+        fits = [_fit(ts[w], Y[w], gens, n_restarts, None if given.z0 is None else given.z0[w],
+                     mesh) for w in range(W)]
     fit = FitResult(*(torch.stack(field) for field in zip(*fits)))
     return ts, Y, torch.stack(svs), fit, torch.stack(bases), torch.stack(mus)
 
@@ -310,16 +348,24 @@ def run_scaled(
     (``io.checkpoint``); a later run whose sizes, seed and source match
     loads it in place of computing it and returns the same result to the
     bit (every later stage draws from a generator of its own). A
-    checkpoint of another run is recomputed and overwritten.
+    checkpoint of another run is recomputed and overwritten. With a mesh,
+    rank 0 writes it and every rank reads it.
 
-    Not ported: ``mesh`` (more than one card) raises NotImplementedError.
+    ``mesh``: a ``parallel.mesh.make_mesh`` mesh with axes "draw" and
+    "mode" over the ranks of the process group, this rank's ``device``
+    among them (module docstring); ``num_modes`` must divide over "mode",
+    and the snapshot rows, the regression points a window and the draws
+    over their axes. None: one device, no collectives.
     ``normals`` replaces random numbers (``ScaledNormals``).
     """
     _check_arguments(
         regularization, modelform, tikhonov_gamma, time_windows, num_regression_points,
-        window_chaining, window_basis, mesh, n_snapshots, num_gp_samples,
+        window_chaining, window_basis, mesh, n_snapshots, num_gp_samples, num_modes,
+        torch.device(device),
     )
     dev = resolve_device(device)
+    if mesh is not None and mesh.get_rank() != 0:
+        verbose = False
     f64 = torch.float64
     gens = stage_generators(seed, dev, SCALED_STAGES)
     given = normals or ScaledNormals()
@@ -360,7 +406,7 @@ def run_scaled(
         front = _compress_and_fit_local if local else _compress_and_fit
         ts, Y, svdvals, fit, *local_bases = front(
             stage, gens, given, dev, data_source, n_space, n_snapshots, r, num_gp_samples,
-            n_restarts, *((W,) if local else ()),
+            n_restarts, *((W,) if local else ()), mesh=mesh,
         )
         if local:
             bases, mus = local_bases
@@ -384,7 +430,12 @@ def run_scaled(
     d = Dt.shape[-1]
     with stage("factorization", "TSQR factorization of all row problems"):
         Dt_flat, zt_flat = Dt.reshape(W * r, mw, d), zt.reshape(W * r, mw)
-        U, S, V = tall_skinny_svd(Dt_flat)
+        # The row problems over "mode", their m' rows over "draw". One
+        # device's 8 row blocks on a mesh too: with a rank count that
+        # divides 8, each rank QRs some of the same blocks, and S and V are
+        # one device's to the bit.
+        U, S, V = tall_skinny_svd(Dt_flat, mesh, None if mesh is None else ("mode", "draw", None),
+                                  row_blocks=8)
         fac = WeightedLSTSQ(U, S, V, torch.einsum("rmd,rm->rd", U, zt_flat), Dt_flat, zt_flat)
 
     make = lambda dtype: search.build_problem(
@@ -402,17 +453,20 @@ def run_scaled(
             (grid_size, search.SCREEN_DRAWS) + shape, given.xi_grid, gens["search"],
             torch.float32, dev,
         )
-        errs = search.grid_screen(screen, grid, xi_grid, blocked)
+        errs = search.grid_screen(screen, grid, xi_grid, blocked, mesh)
     with stage("refinement", "regularization refinement"):
         single = search.frozen_objective(screen, xi_refine)
         refine = search.refine_blocked if blocked else search.refine_scalar
         params_np = refine(single, grid, errs)  # (W,) or (W, 2)
+        if mesh is not None:  # no rank may diverge on a last bit
+            params_np = broadcast_from_first(torch.as_tensor(params_np, device=dev),
+                                             mesh).cpu().numpy()
 
     final = make(f64)
     params = torch.as_tensor(params_np, dtype=f64, device=dev)
     with stage("ensemble", "posterior ensemble"):
         xi_final = _normals((ndraws,) + shape, given.xi_final, gens["draws"], f64, dev)
-        means_w, frac = rollout.final_ensemble(final, params, xi_final)
+        means_w, frac = rollout.final_ensemble(final, params, xi_final, mesh)
         window_error = rollout.span_error(means_w, final)
 
     result = ScaledResult(
@@ -441,18 +495,20 @@ def run_scaled(
         with stage("chain", "chained rollout"):
             xi_chain = _normals((ndraws,) + shape, given.xi_chain, gens["draws"], f64, dev)
             _chained(result, final, params, params_np, xi_chain, window_error, window_chaining,
-                     means_w, blocked)
+                     means_w, blocked, mesh)
     result.stage_seconds = {name: block.elapsed for name, block in times.items()}
     return result
 
 
 def _chained(result, final, params, params_np, xi_chain, window_error, window_chaining,
-             means_anchor, blocked):
+             means_anchor, blocked, mesh):
     """Fill the W > 1 fields of ``result``: the chained rollouts under all
     three boundary schemes and the chosen one's mean and error."""
+    if mesh is not None:
+        xi_chain = shard_leading_axis(xi_chain, mesh, "draw")
     ohat = final.sample(params, xi_chain)
-    means_mean = rollout.chain_mean(final, ohat)
-    means_draws, _ = rollout.chain_draws(final, ohat)
+    means_mean = rollout.chain_mean(final, ohat, mesh)
+    means_draws, _ = rollout.chain_draws(final, ohat, mesh)
     result.chained_error_mean = rollout.span_error(means_mean, final)
     result.chained_error_draws = rollout.span_error(means_draws, final)
     means, result.train_error = {

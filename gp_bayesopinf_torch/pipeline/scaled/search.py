@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ...ops.quadratic import ckron
+from ...parallel.mesh import sharded_map
 from ...rom import GalerkinROM
 from ...rom.operators import extract_operators, operator_splits
 from ...solve.ivp import CLAMP, stability_mask
@@ -209,7 +210,8 @@ def build_problem(rom, fac, state_est, tw, regularization, tikhonov_gamma,
     return WindowProblem(rom, sample, states_w, tw.to(dtype), shift, limits, transfer)
 
 
-def grid_screen(problem: WindowProblem, grid: np.ndarray, xi, blocked: bool) -> np.ndarray:
+def grid_screen(problem: WindowProblem, grid: np.ndarray, xi, blocked: bool,
+                mesh=None) -> np.ndarray:
     """Screen errors of every grid candidate in every window: (g, W), or
     (g, g, W) for the blocked pair grid (lambda_1 down, lambda_2 across).
 
@@ -218,18 +220,25 @@ def grid_screen(problem: WindowProblem, grid: np.ndarray, xi, blocked: bool) -> 
     many candidates independent screens would hand the argmin to the
     luckiest draws, while common draws make the screen a smooth surface
     of the pair. The pair grid is integrated a row of g candidates at a
-    time."""
+    time. With a ``mesh`` the candidates (the pair grid's rows) are split
+    over "draw" and gathered (``parallel.mesh.sharded_map``)."""
     W = problem.tw.shape[0]
     dt, dev = problem.tw.dtype, problem.tw.device
     g = torch.as_tensor(grid, dtype=dt, device=dev)
     if not blocked:
-        errs = problem.window_errors(g[:, None].expand(-1, W), xi)
+        def screen(idx):
+            return problem.window_errors(g[idx][:, None].expand(-1, W), xi[idx])
     else:
         pairs = torch.stack(torch.meshgrid(g, g, indexing="ij"), dim=-1)  # (g, g, 2)
-        errs = torch.stack([
-            problem.window_errors(row[:, None, :].expand(-1, W, -1), xi.expand(len(g), *xi.shape))
-            for row in pairs
-        ])
+
+        def screen(idx):
+            return torch.stack([
+                problem.window_errors(row[:, None, :].expand(-1, W, -1),
+                                      xi.expand(len(g), *xi.shape))
+                for row in pairs[idx]
+            ])
+    errs = screen(slice(None)) if mesh is None else sharded_map(
+        lambda idx: screen(idx.to(dev)), len(g), mesh, "draw")
     errs = errs.cpu().numpy()
     dead = np.all(errs.reshape(-1, W) >= REJECTED, axis=0)
     if dead.any():

@@ -6,7 +6,9 @@ SEIRD part, the low-rank Euler route, the Tikhonov regularizers, the
 tall-matrix factorizations, ``run_scaled``, the ``scaled`` command line,
 a named workload, the HDF5 export, the scaled checkpoint, ``serve`` and
 ``warmup`` (its workloads replaced) run with ``jax`` and
-``gp_bayesopinf_tpu`` blocked from import."""
+``gp_bayesopinf_tpu`` blocked from import, and so does ``scaled --devices
+2`` in two gloo ranks, whose processes find packages of those names that
+refuse to import."""
 
 import os
 import subprocess
@@ -133,6 +135,18 @@ assert cli.main(["serve"]) == 0
 lines, sys.stdout = sys.stdout.getvalue().splitlines(), real_stdout
 acks = [json.loads(l)["serve"] for l in lines if l.startswith('{"serve"')]
 assert [a["rc"] for a in acks] == [0, 0, 2], acks
+
+# The multi-device layer: two CPU ranks, each importing the port afresh.
+import os
+from gp_bayesopinf_torch.parallel import distributed, mesh
+blocked = tempfile.mkdtemp()
+for name in ("jax", "jaxlib", "gp_bayesopinf_tpu"):
+    os.makedirs(os.path.join(blocked, name))
+    with open(os.path.join(blocked, name, "__init__.py"), "w") as f:
+        f.write("raise ImportError('blocked in the ranks of this test')\n")
+sys.path.insert(0, blocked)  # the spawned ranks start from this path
+ranked = cli.run(tiny + ["--devices", "2"])
+assert ranked.stable_fraction > 0 and ranked.regularizer > 0
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "gp_bayesopinf_tpu") for m in sys.modules)
 print("ok")
 """

@@ -76,13 +76,17 @@ def test_tall_skinny_svd_row_blocks(rng, row_blocks, blocks):
 
 
 def test_tall_skinny_svd_serves_the_regression_and_takes_no_mesh(rng):
+    """Without a mesh the three factorizations give one device's result
+    (their mesh forms: ``tests/test_torch_mesh.py``)."""
     X = _stack(rng, np.float64)
-    with pytest.raises(TypeError):
-        tall_skinny_svd(_t(X), mesh=None)
-    with pytest.raises(TypeError):
-        randomized_pod(_t(X[0]), 2, row_axis="seq")
-    with pytest.raises(TypeError):
-        sharded_gram_pod(_t(X[0]), 2, mesh=None)
+    for mine, one in zip(tall_skinny_svd(_t(X), mesh=None), tall_skinny_svd(_t(X))):
+        assert torch.equal(mine, one)
+    pods = [randomized_pod(_t(X[0]), 2, oversample=2, generator=torch.Generator().manual_seed(0),
+                           **kw) for kw in (dict(mesh=None, row_axis="seq"), {})]
+    for mine, one in zip(*pods):
+        assert torch.equal(mine, one)
+    for mine, one in zip(sharded_gram_pod(_t(X[0]), 2, mesh=None), sharded_gram_pod(_t(X[0]), 2)):
+        assert torch.equal(mine, one)
     D = rng.standard_normal((1, 96, 5))
     roots = np.broadcast_to(np.eye(96), (3, 1, 96, 96))
     rhs = rng.standard_normal((3, 1, 96))

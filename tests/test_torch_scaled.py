@@ -14,6 +14,7 @@ refinement, the final ensemble and the chained rollouts).
 """
 
 import functools
+import types
 
 import numpy as np
 import jax
@@ -566,7 +567,9 @@ def test_lowrank_auto_threshold(monkeypatch):
     (dict(data_source="heat"), ValueError, "unknown data_source"),
     (dict(window_basis="local", time_windows=16), ValueError, "n_snapshots must divide"),
     (dict(window_basis="local", time_windows=8), ValueError, "num_gp_samples must divide"),
-    (dict(mesh=object()), NotImplementedError, "item 12"),
+    (dict(mesh=types.SimpleNamespace(mesh_dim_names=("draw", "mode"), size=(1, 3).__getitem__,
+                                     device_type="cpu")),
+     ValueError, "num_modes must divide the 'mode' mesh axis"),
 ])
 def test_run_scaled_guards(kwargs, error, match):
     with pytest.raises(error, match=match):
@@ -586,9 +589,9 @@ def test_dead_grid_raises():
         search.grid_screen(problem, np.logspace(-12, 6, G), xi, False)
 
 
-def test_scaled_cli(capsys, tmp_path):
-    """``scaled`` through parser and pipeline: the reference's flags but
-    ``--devices``, the JSON summary, and the refusals."""
+def test_scaled_cli(capsys, tmp_path, monkeypatch):
+    """``scaled`` through parser and pipeline: the reference's flags, the
+    JSON summary, and the refusals (``--devices`` above the card count)."""
     args = cli.build_parser().parse_args(["scaled"])
     assert (args.n_space, args.n_snapshots, args.num_modes, args.gp_samples, args.mprime,
             args.restarts, args.ndraws, args.grid_size, args.seed, args.modelform,
@@ -596,8 +599,12 @@ def test_scaled_cli(capsys, tmp_path):
             args.window_basis, args.weight_method, args.device) == (
         6000, 10000, 30, 512, 2048, 32, 256, 16, 0, "cA", "synthetic", "scalar", 1, "draws",
         "global", "auto", "cuda")
-    with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["scaled", "--devices", "2"])
+    assert args.devices == 0
+    assert cli.build_parser().parse_args(["scaled", "--devices", "2"]).devices == 2
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=r"--devices 2 asks for 2 CUDA devices; "
+                       r"torch.cuda.device_count\(\) is 1"):
+        cli.run(["scaled", "--devices", "2"])
     np.save(tmp_path / "gamma.npy", np.full(R + 1, 0.5))
     small = ["scaled", "--n-space", str(N), "--k", str(K), "--modes", str(R), "--gp-samples",
              str(M), "--mprime", str(MP), "--restarts", str(NRES), "--ndraws", str(NDRAWS),
