@@ -40,6 +40,13 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    9, nu = 2, k = 500 without the error term, L = 5) against the runtime
    kernel and timed in turns; then both forced at r = 5, nu = 2 against
    the templated instance;
+4c. the runtime-dimension kernels in the range only they serve: kernel
+   A at r = 40 (k = 400 with the error term) and kernel B at (r, nu) =
+   (20, 2) and (6, 5) (k = 80 with it), G = 16, nd = 20, each against its
+   plain version and timed with CUDA events on the same inputs, beside
+   its bound; their launches on the main paths are read from every
+   main-path run below (by the wrappers' per-family counts) and must be
+   0;
 5. run the full ex1a workload through the port's CLI entry
    (``euler 0.06 200 0.03 400 6 --ndraws 600`` on ``cuda``) and check
    that the grid search went through kernel A, two launches per objective
@@ -292,6 +299,31 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def f32(a):
+    """A case's inputs as the kernels' float32 copies."""
+    return {n: None if v is None else v.to(torch.float32).contiguous() for n, v in a.items()}
+
+
+def held(name, screen, plain, a, kw, G, batched):
+    """The screen entry ``screen`` on case ``a`` with keywords ``kw``,
+    against its plain version ``plain`` on the float32 copy, timed with
+    CUDA events; the two held by ``hold``. Returns the float32 copy, the
+    kernel's (stable, err_sq), the largest |err_sq difference| and the
+    plain version's milliseconds."""
+    f = f32(a)
+    s_k, e_k = screen(*a.values(), **kw)
+    torch.cuda.synchronize()
+    steps = (kw["substeps"],) + ((kw["newton_iters"],) if "newton_iters" in kw else ())
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    s_p, e_p, maxdev = plain(*f.values(), kw["nd"], *steps, kw["track_error"])
+    stop.record()
+    torch.cuda.synchronize()
+    err = hold(name, s_k, e_k, s_p, e_p, maxdev, f["limits"], G, kw["nd"], kw["track_error"],
+               batched)
+    return f, s_k, e_k, err, start.elapsed_time(stop)
+
+
 def bound_ms(flops, nbytes):
     """The least time the card could take: (ms, "operations" or "bytes")."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
@@ -333,7 +365,6 @@ def kernel_phase():
     from gp_bayesopinf_torch.ops import ensemble_screen as es
 
     rng = np.random.default_rng(20260817)
-    f32 = torch.float32
     max_err, times = 0.0, None
     # (r, G, nd, k, t_max, track_error, L); L = 0 is the single-problem
     # form; r = 6 is the ex1a shape, r = 5 the SEIRD one.
@@ -347,22 +378,15 @@ def kernel_phase():
         a = make(G, nd, k, t_max, rng, track)
         if L:
             a = batched_case(a, L, rng, {})
-        f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
         kw = dict(nd=nd, substeps=8, track_error=track)
-        s_k, e_k = es.quadratic_ensemble_screen(*a.values(), **kw)
-        torch.cuda.synchronize()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        s_p, e_p, maxdev = es._plain(*f.values(), nd, 8, track)
-        stop.record()
-        torch.cuda.synchronize()
-        err = hold("A", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd, track, L > 0)
+        f, s_k, e_k, err, plain_ms = held("A", es.quadratic_ensemble_screen, es._plain, a, kw, G,
+                                          L > 0)
         max_err = max(max_err, err)
         if k == 3200:  # the plain version takes seconds here: timed on this one run
             ms = cuda_ms(lambda: es.quadratic_ensemble_screen_cuda(*f.values(), **kw), 10)
             bound, by = bound_ms(quadratic_flops(G * nd, r, k, 8),
                                  screen_bytes(f.values(), G * nd, G))
-            ex1c = dict(ms=ms, plain_ms=start.elapsed_time(stop), bound_ms=bound, bound_by=by,
+            ex1c = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                         max_abs_err=err)
             print(f"[kernel vs plain] ex1c shape, k=3200 with error: kernel {ms:.3f} ms, plain "
                   f"{ex1c['plain_ms']:.3f} ms (CUDA events, one run), bound {bound:.4f} ms ({by}); "
@@ -374,7 +398,6 @@ def kernel_phase():
               f"flags identical ({int(s_k.sum())}/{s_k.numel()} stable)", flush=True)
         if r == 5:
             ms = cuda_ms(lambda: es.quadratic_ensemble_screen_cuda(*f.values(), **kw), 10)
-            plain_ms = start.elapsed_time(stop)  # the plain run of the check above
             bound, by = bound_ms(quadratic_flops(G * nd, 5, k, 8),
                                  screen_bytes(f.values(), G * nd, G))
             seird[f"k{k}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
@@ -390,7 +413,6 @@ def kernel_phase():
                 print(f"[kernel vs plain] k=400 with error, L={L} in one launch: kernel "
                       f"{ms:.3f} ms (CUDA events), bound {bound:.4f} ms ({by})", flush=True)
                 continue
-            plain_ms = start.elapsed_time(stop)  # the plain run of the check above
             times = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
             print(f"[kernel vs plain] k=400 with error: kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms (CUDA events, one run), bound {bound:.4f} ms "
@@ -401,16 +423,15 @@ def kernel_phase():
 
 def ex3_inputs(params, t, nu=2):
     """The ex3 input family at (a, b) = ``params`` at every time the SDIRK2
-    screen reads (4 substeps): ((k-1) 12, nu). A third channel, where nu =
-    3, is sin(2 pi t)."""
+    screen reads (4 substeps): ((k-1) 12, nu). Channels beyond the two,
+    where nu > 2, are sin(2 pi c t) for c = 1, 2, ..."""
     from gp_bayesopinf_torch.ops.cahbn_screen import input_stage_times
     from gp_bayesopinf_torch.pipeline.pdes_multi import input_func_factory
 
     ts = input_stage_times(t, 4)
     u = input_func_factory(params)(ts).T
-    if nu == 3:
-        u = torch.cat([u, torch.sin(2.0 * math.pi * ts)[:, None]], dim=1)
-    return u
+    extra = [torch.sin(2.0 * math.pi * c * ts)[:, None] for c in range(1, nu - 1)]
+    return torch.cat([u] + extra, dim=1)
 
 
 def cahbn_case(G, nd, k, t_max, rng, track_error, r=5, nu=2):
@@ -446,7 +467,6 @@ def cahbn_phase():
     from gp_bayesopinf_torch.pipeline.pdes_multi import input_func_factory
 
     rng = np.random.default_rng(20261016)
-    f32 = torch.float32
     max_err, fields = 0.0, None
     # (G, nd, k, t_max, track_error, L); L = 0 is the single-problem form.
     # L = 5 is ex3's: each trajectory its own q0 and the inputs of its own
@@ -461,18 +481,11 @@ def cahbn_phase():
             ts = input_stage_times(a["t_eval"], 4)
             a = batched_case(a, L, rng, {
                 "u_stages": lambda ell: input_func_factory(params[ell])(ts).T})
-        f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
+        f = f32(a)
         kw = dict(nd=nd, substeps=4, newton_iters=6, track_error=track)
         if k < 500:  # the plain version takes ~5 s a problem at k = 80
-            s_k, e_k = cs.cahbn_ensemble_screen(*a.values(), **kw)
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            s_p, e_p, maxdev = cs._plain(*f.values(), nd, 4, 6, track)
-            stop.record()
-            torch.cuda.synchronize()
-            err = hold("B", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd, track, L > 0)
+            f, s_k, e_k, err, plain_ms = held("B", cs.cahbn_ensemble_screen, cs._plain, a, kw, G,
+                                              L > 0)
             max_err = max(max_err, err)
             print(f"[kernel B vs plain] G={G} nd={nd} k={k} track_error={track} L={L or 1}: "
                   f"flags identical ({int(s_k.sum())}/{s_k.numel()} stable)", flush=True)
@@ -485,8 +498,7 @@ def cahbn_phase():
         print(f"[kernel B] k={k} track_error={track} L={L or 1} in one launch: kernel {ms:.3f} "
               f"ms (CUDA events), bound {bound:.4f} ms ({by}); {newton_ns:.1f} ns per Newton "
               "step", flush=True)
-        if (k, L) == (80, 0):
-            plain_ms = start.elapsed_time(stop)  # the plain run of the check above
+        if (k, L) == (80, 0):  # plain_ms: the plain run of the check above
             fields = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
             print(f"[kernel B vs plain] k=80 with error: plain {plain_ms:.3f} ms (CUDA events, "
                   "one run)", flush=True)
@@ -529,7 +541,6 @@ def capacity_a_phase():
     from gp_bayesopinf_torch.ops import ensemble_screen as es
 
     rng = np.random.default_rng(20261017)
-    f32 = torch.float32
     out = {}
     # (r, G, nd, k, t_max, track_error, L); L = 0 is the single-problem form.
     cases = [(r, 16, 20, 400, 0.06, True, 0) for r in (13, 16, 24)]
@@ -539,18 +550,12 @@ def capacity_a_phase():
         a = screen_case(G, nd, k, t_max, rng, track, r=r)
         if L:
             a = batched_case(a, L, rng, {})
-        f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
         kw = dict(nd=nd, substeps=8, track_error=track)
         assert es.screen_family(r) == "capacity"
-        s_k, e_k = es.quadratic_ensemble_screen(*a.values(), **kw)
+        f, s_k, e_k, err, plain_ms = held(f"A r={r}", es.quadratic_ensemble_screen, es._plain, a,
+                                          kw, G, L > 0)
         s_r, e_r = es.quadratic_ensemble_screen_cuda(*f.values(), **kw, family="runtime")
         torch.cuda.synchronize()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        s_p, e_p, maxdev = es._plain(*f.values(), nd, 8, track)
-        stop.record()
-        torch.cuda.synchronize()
-        err = hold(f"A r={r}", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd, track, L > 0)
         same_bits(f"A r={r}", s_k, e_k, s_r, e_r)
         print(f"[kernel A, capacity {es.capacity_instance(r)}] r={r} G={G} nd={nd} k={k} "
               f"track_error={track} L={L or 1}: flags identical to the plain version "
@@ -564,7 +569,7 @@ def capacity_a_phase():
         ms, ms_old = sum(new) / 2, sum(old) / 2
         bound, by = bound_ms(quadratic_flops(G * nd, r, k, 8), screen_bytes(f.values(), G * nd, G))
         rhs = (k - 1) * 8 * 4
-        out[r] = dict(ms=ms, runtime_ms=ms_old, plain_ms=start.elapsed_time(stop),
+        out[r] = dict(ms=ms, runtime_ms=ms_old, plain_ms=plain_ms,
                       bound_ms=bound, bound_by=by, max_abs_err=err, ns_per_rhs=1e6 * ms / rhs,
                       capacity=es.capacity_instance(r))
         print(f"[kernel A, capacity {es.capacity_instance(r)}] r={r} k=400 with error, in turns "
@@ -579,7 +584,7 @@ def capacity_a_phase():
         a = screen_case(16, 20, 400, 0.06, rng, True)
         if L:
             a = batched_case(a, L, rng, {})
-        f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
+        f = f32(a)
         kw = dict(nd=20, substeps=8, track_error=True)
         s_t, e_t = es.quadratic_ensemble_screen_cuda(*f.values(), **kw)
         ok = s_t.reshape(s_t.shape[:-1] + (16, 20)).all(dim=-1) & torch.isfinite(e_t)
@@ -613,7 +618,6 @@ def capacity_b_phase():
     from gp_bayesopinf_torch.pipeline.configs import HeatMultiConfig
 
     rng = np.random.default_rng(20261018)
-    f32 = torch.float32
     out = {}
     params = HeatMultiConfig().input_parameters
     # (r, nu, G, nd, k, t_max, track_error, L)
@@ -628,23 +632,19 @@ def capacity_b_phase():
         if L:
             a = batched_case(a, L, rng, {"u_stages": lambda ell: ex3_inputs(params[ell],
                                                                               a["t_eval"])})
-        f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
         kw = dict(nd=nd, substeps=4, newton_iters=6, track_error=track)
         assert cs.screen_family(r, nu) == "capacity"
         instance = f"capacity {cs.capacity_instance(r)}"
-        s_k, e_k = cs.cahbn_ensemble_screen(*a.values(), **kw)
+        if k < 500:
+            f, s_k, e_k, err, plain_ms = held(f"B r={r} nu={nu}", cs.cahbn_ensemble_screen,
+                                              cs._plain, a, kw, G, L > 0)
+        else:
+            f = f32(a)
+            s_k, e_k = cs.cahbn_ensemble_screen(*a.values(), **kw)
         s_r, e_r = cs.cahbn_ensemble_screen_cuda(*f.values(), **kw, family="runtime")
         torch.cuda.synchronize()
         same_bits(f"B r={r} nu={nu} k={k}", s_k, e_k, s_r, e_r)
         if k < 500:
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            s_p, e_p, maxdev = cs._plain(*f.values(), nd, 4, 6, track)
-            stop.record()
-            torch.cuda.synchronize()
-            err = hold(f"B r={r} nu={nu}", s_k, e_k, s_p, e_p, maxdev, f["limits"], G, nd,
-                       track, L > 0)
             print(f"[kernel B, {instance}] r={r} nu={nu} G={G} nd={nd} k={k} track_error={track} "
                   f"L={L or 1}: flags identical to the plain version ({int(s_k.sum())}/"
                   f"{s_k.numel()} stable), err_sq max abs diff {err:.3e}; flags identical and "
@@ -676,14 +676,13 @@ def capacity_b_phase():
         if k == 500:
             out[(9, 2)]["k500_L5"] = fields
             continue
-        out[(r, nu)] = dict(fields, plain_ms=start.elapsed_time(stop), max_abs_err=err)
+        out[(r, nu)] = dict(fields, plain_ms=plain_ms, max_abs_err=err)
         print(f"[kernel B, {instance}] r={r} nu={nu} k=80: plain {out[(r, nu)]['plain_ms']:.3f} "
               "ms (CUDA events, one run)", flush=True)
 
     # Below the capacity kernel's range: it and the runtime kernel, forced at
     # r = 5, nu = 2 (ex3's shape), against the templated instance.
-    a = cahbn_case(16, 20, 80, 1.0, rng, True)
-    f = {n: None if v is None else v.to(f32).contiguous() for n, v in a.items()}
+    f = f32(cahbn_case(16, 20, 80, 1.0, rng, True))
     kw = dict(nd=20, substeps=4, newton_iters=6, track_error=True)
     s_t, e_t = cs.cahbn_ensemble_screen_cuda(*f.values(), **kw)
     ok = s_t.reshape(16, 20).all(dim=-1) & torch.isfinite(e_t)
@@ -696,6 +695,56 @@ def capacity_b_phase():
         print(f"[kernel B, {family}] forced at r=5, nu=2: flags identical to the templated "
               f"instance ({int(s_a.sum())}/{s_a.numel()} stable), err_sq max abs diff "
               f"{float((e_a[ok] - e_t[ok]).abs().max()):.3e}", flush=True)
+    return out
+
+
+def runtime_phase():
+    """Phase 4c: the runtime-dimension kernels in the range that only
+    they serve: kernel A at r = 40 (above the capacity kernel's 32; d =
+    861, k = 400) and kernel B at (r, nu) = (20, 2) and (6, 5) (above r 16
+    or nu 4; k = 80), G = 16, nd = 20, with the error term, on phase 3's
+    and 4's cases. Each against its plain version on the inputs it is
+    timed on: identical flags, err_sq within rtol 1e-3. Returns the JSON
+    fields of each shape."""
+    from gp_bayesopinf_torch.ops import cahbn_screen as cs
+    from gp_bayesopinf_torch.ops import ensemble_screen as es
+
+    rng = np.random.default_rng(20261019)
+    G, nd = 16, 20
+    out = {}
+    for r, nu in ((40, None), (20, 2), (6, 5)):
+        if nu is None:  # kernel A
+            mod, screen, k, label = es, es.quadratic_ensemble_screen, 400, f"A r={r}"
+            wrapper = es.quadratic_ensemble_screen_cuda
+            family = es.screen_family(r)
+            a = screen_case(G, nd, k, 0.06, rng, True, r=r)
+            kw = dict(nd=nd, substeps=8, track_error=True)
+            work, steps, per = quadratic_flops(G * nd, r, k, 8), (k - 1) * 8 * 4, "rhs"
+        else:
+            mod, screen, k, label = cs, cs.cahbn_ensemble_screen, 80, f"B r={r} nu={nu}"
+            wrapper = cs.cahbn_ensemble_screen_cuda
+            family = cs.screen_family(r, nu)
+            a = cahbn_case(G, nd, k, 1.0, rng, True, r=r, nu=nu)
+            kw = dict(nd=nd, substeps=4, newton_iters=6, track_error=True)
+            # Neither kernel integrates a draw whose operator is NaN.
+            nan_draws = int(torch.isnan(a["Ohat"]).flatten(1).any(dim=1).sum())
+            work = cahbn_flops(G * nd - nan_draws, r, nu, k, 4, 6)
+            steps, per = (k - 1) * 4 * 2 * 6, "newton_step"
+        assert family == "runtime", (label, family)
+        before = mod.family_launches["runtime"]
+        f, s_k, e_k, err, plain_ms = held(label, screen, mod._plain, a, kw, G, False)
+        assert mod.family_launches["runtime"] == before + 1
+        ms = cuda_ms(lambda: wrapper(*f.values(), **kw), 3)
+        bound, by = bound_ms(work, screen_bytes(f.values(), G * nd, G))
+        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                          max_abs_err=err, shape=f"G {G}, nd {nd}, r {r}"
+                          + ("" if nu is None else f", nu {nu}") + f", k {k}, error term",
+                          **{f"ns_per_{per}": 1e6 * ms / steps})
+        print(f"[kernel {label}, runtime] G={G} nd={nd} k={k} with error: flags identical to the "
+              f"plain version ({int(s_k.sum())}/{s_k.numel()} stable), err_sq max abs diff "
+              f"{err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events; plain one "
+              f"run), bound {bound:.4f} ms ({by}, {ms / bound:.0f}x); {1e6 * ms / steps:.1f} ns "
+              f"per {per.replace('_', ' ')}", flush=True)
     return out
 
 
@@ -712,6 +761,26 @@ def read_launches():
 
     return {"quadratic_ensemble_screen": ensemble_screen.launches,
             "cahbn_ensemble_screen": cahbn_screen.launches}
+
+
+def runtime_launches():
+    """Each kernel's runtime-dimension family's launches since the last
+    ``reset_launches``."""
+    from gp_bayesopinf_torch.ops import cahbn_screen, ensemble_screen
+
+    return {"quadratic_ensemble_screen": ensemble_screen.family_launches["runtime"],
+            "cahbn_ensemble_screen": cahbn_screen.family_launches["runtime"]}
+
+
+# The runtime-dimension kernels' launches on the main paths: every main
+# path's run adds its counts (``runtime_launches``, or a child process's)
+# here just after it ends.
+MAIN_PATH_RUNTIME = dict.fromkeys(KERNELS, 0)
+
+
+def tally_runtime(counts=None):
+    for name, n in (counts or runtime_launches()).items():
+        MAIN_PATH_RUNTIME[name] += n
 
 
 def run_counted(argv, kernel):
@@ -742,6 +811,7 @@ def run_counted(argv, kernel):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()[kernel]
+        tally_runtime()
     finally:
         regsearch._kernel_objective = make
     return res, wall, launches, evaluations
@@ -925,6 +995,7 @@ def scaled_phase():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    tally_runtime()
     print(f"[scaled] wall {wall:.2f} s; stages (s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
     print(f"[scaled] weight roots '{res.weight_method}', retained ranks of the 30 roots "
@@ -1012,9 +1083,11 @@ def windowed_phase():
     gate: the sizes are cut far below a deployment's)."""
     from gp_bayesopinf_torch.pipeline import cli
 
+    reset_launches()
     t0 = time.perf_counter()
     res = cli.run(SCALED_WINDOWED)
     torch.cuda.synchronize()
+    tally_runtime()
     print(f"[scaled, 4 windows] wall {time.perf_counter() - t0:.2f} s; stages (s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
     print(f"[scaled, 4 windows] window regularizers {res.window_regularizers.tolist()}, stable "
@@ -1083,6 +1156,7 @@ def local_phase():
     res = cli.run(SCALED_LOCAL)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    tally_runtime()
     print(f"[scaled, 8 local windows] wall {wall:.2f} s; stages (s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
     lams = res.window_regularizers
@@ -1194,6 +1268,9 @@ def serve_phase(seird_res, seird_launches):
     assert counts[:5] == [seird_launches] * 3 + [seird_launches if have_h5py else 0,
                                                  seird_launches], counts
     assert not any(a["launches"]["cahbn_ensemble_screen"] for a in acks)
+    for ack in acks:
+        tally_runtime({name: by_family["runtime"]
+                       for name, by_family in ack["family_launches"].items()})
     print(f"[serve] every SEIRD answer: lambda {lam}, {n_valid}/600 stable, {seird_launches} "
           "kernel A launches, as phase 7", flush=True)
 
@@ -1238,12 +1315,14 @@ def checkpoint_phase():
 
     ckpt = tempfile.mkdtemp(prefix="scaled-ckpt-", dir=Path(__file__).resolve().parent / "build")
     runs, walls = [], []
+    reset_launches()
     for _ in range(2):
         t0 = time.perf_counter()
         # m' cut to 512 (from 2048): the refinement's steps set the wall.
         runs.append(cli.run(SCALED + ["--mprime", "512", "--checkpoint-dir", ckpt]))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    tally_runtime()
     first, second = runs
     for res, wall in zip(runs, walls):
         print(f"[checkpoint] wall {wall:.2f} s; stages (s): "
@@ -1284,13 +1363,14 @@ def mesh_scaled_rank(rank, shape):
 
     mesh = make_mesh(shape, "cuda")
     pmesh.collectives, pmesh.collective_seconds = 0, 0.0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run_scaled(mesh=mesh, device="cuda")
     torch.cuda.synchronize()
     return dict(scaled_digest(res), wall=time.perf_counter() - t0, collectives=pmesh.collectives,
                 collective_seconds=pmesh.collective_seconds, backend=dist.get_backend(),
-                card=torch.cuda.current_device())
+                card=torch.cuda.current_device(), runtime=runtime_launches())
 
 
 def search_args(search):
@@ -1327,7 +1407,7 @@ def mesh_pair_rank(rank, search):
     launches = read_launches()["quadratic_ensemble_screen"]
     search_out = dict(grid_errors=res.grid_errors, regularizer=res.regularizer,
                       refined=res.refined, launches=launches, wall=wall,
-                      families=dict(ensemble_screen.family_launches))
+                      families=dict(ensemble_screen.family_launches), runtime=runtime_launches())
     return dict(search=search_out, scaled=mesh_scaled_rank(rank, {"draw": 2, "mode": 1}))
 
 
@@ -1391,6 +1471,7 @@ def mesh_phase(search, scaled_res):
           f"collectives, {a['collective_seconds']:.3f} s); stages (s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in a["stages"].items()), flush=True)
     compare_scaled("(a) world 1 against one device", a, one, strict=True)
+    tally_runtime(a["runtime"])
 
     args, kw = search_args(search)
     reset_launches()
@@ -1399,6 +1480,7 @@ def mesh_phase(search, scaled_res):
     res1 = auto_regularize(*args, **kw)
     torch.cuda.synchronize()
     wall1, launches1 = time.perf_counter() - t0, read_launches()["quadratic_ensemble_screen"]
+    tally_runtime()
     t0 = time.perf_counter()
     pair = spawn(mesh_pair_rank, 2, ["cuda:0", "cuda:0"], backend="gloo", args=(search,),
                  timeout=900)
@@ -1414,6 +1496,8 @@ def mesh_phase(search, scaled_res):
         assert np.array_equal(srch["grid_errors"], res1.grid_errors), "grid errors differ"
         assert srch["regularizer"] == res1.regularizer and srch["refined"] == res1.refined
         assert 0 < srch["launches"] < launches1
+        tally_runtime(srch["runtime"])
+        tally_runtime(out["scaled"]["runtime"])
     print(f"[mesh] (b) the {len(res1.grid_errors)}-point grid's errors and lambda equal one "
           f"device's to the bit on both ranks ({int((res1.grid_errors < 1e12).sum())} candidates "
           "accepted)", flush=True)
@@ -1430,6 +1514,8 @@ def mesh_phase(search, scaled_res):
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
+    # (c)'s launches are not read: its rank runs in a grandchild process.
+    # (a) runs the same run_scaled on a mesh, and is counted.
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "gp_bayesopinf_torch.pipeline.cli"] + MESH_CLI,
                           cwd=root, env=env, capture_output=True, text=True, timeout=600)
@@ -1476,6 +1562,7 @@ def main() -> int:
     wide_a = phase("kernel A, capacity", capacity_a_phase)
     fields["cahbn_ensemble_screen"] = phase("kernel B", cahbn_phase)
     wide_b = phase("kernel B, capacity", capacity_b_phase)
+    runtime = phase("kernels A and B, runtime", runtime_phase)
     fields["quadratic_ensemble_screen"]["launches"], ex1a_search = phase("ex1a", pipeline_phase)
     fields["cahbn_ensemble_screen"]["launches"] = phase("ex3", heat_phase)
     # Kernel A carries several main paths: its launches are those of all runs.
@@ -1534,6 +1621,16 @@ def main() -> int:
                       family="capacity", shape=f"G 16, nd 20, r {r}, nu {nu}, k 80, error term",
                       launches_path="heat 1.0 20 0.05 80 9, at r 9 and nu 2", **extra(f))
                 for (r, nu), f in wide_b.items()]
+    # The runtime-dimension kernels, in the range only they serve, with
+    # their launches summed over every main-path run: no main path screens
+    # there.
+    print(f"[runtime kernels] launches on the main paths: {MAIN_PATH_RUNTIME}", flush=True)
+    assert not any(MAIN_PATH_RUNTIME.values()), MAIN_PATH_RUNTIME
+    none = "none: no main path screens above r 32 (A) or r 16 / nu 4 (B)"
+    names = {"A": "quadratic_ensemble_screen", "B": "cahbn_ensemble_screen"}
+    kernels += [entry(names[label[0]], dict(f, launches=MAIN_PATH_RUNTIME[names[label[0]]]),
+                      family="runtime", launches_path=none, **extra(f))
+                for label, f in runtime.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

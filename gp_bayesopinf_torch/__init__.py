@@ -4,8 +4,8 @@ kernels for NVIDIA Hopper.
 The port of the JAX package ``gp_bayesopinf_tpu`` (which stays in the
 repository as the reference). The layout mirrors it module by module
 (``ops``, ``gp``, ``rom``, ``solve``, ``bayes``, ``models``,
-``pipeline``, ``utils``) so each counterpart is easy to find; every
-module's docstring names its JAX counterpart.
+``pipeline``, ``utils``, ``viz``) so each counterpart is easy to find;
+every module's docstring names its JAX counterpart.
 
 Conventions:
 

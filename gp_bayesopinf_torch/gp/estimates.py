@@ -96,6 +96,25 @@ def batched_gp_estimates(
     return GPEstimates(state, ddt, C, root, ok & (info == 0))
 
 
+def gp_estimates(
+    t: torch.Tensor,
+    y: torch.Tensor,
+    t_est: torch.Tensor,
+    sigma2,
+    ell,
+    chi,
+    eta: float = 1e-8,
+    method: str = "eigh",
+) -> GPEstimates:
+    """Estimates and the weight root of one state variable: ``t`` and ``y``
+    (m,), ``t_est`` (m',), scalar hyperparameters; every product without
+    the leading mode axis (``batched_gp_estimates`` over one mode)."""
+    hyper = [torch.as_tensor(h, dtype=y.dtype, device=y.device).reshape(1)
+             for h in (sigma2, ell, chi)]
+    est = batched_gp_estimates(t[None], y[None], t_est, *hyper, eta=eta, method=method)
+    return GPEstimates(*(x[0] for x in est))
+
+
 def gp_predict(t, y, t_query, sigma2, ell, chi):
     """Posterior predictive mean and standard deviation at query times, as
     ``sklearn.GaussianProcessRegressor.predict(return_std=True)`` gives

@@ -28,6 +28,7 @@ import torch
 from ..bayes.posterior import BayesianODE, BayesianROM, OperatorPosterior
 from ..rom.model import GalerkinROM
 from ..utils.device import DeviceLike
+from ..utils.device import to_host as _host
 
 
 def require_h5py():
@@ -40,12 +41,6 @@ def require_h5py():
             "HDF5 files (--exportto, io.hdf5) need the 'h5py' package, which is not installed"
         ) from exc
     return h5py
-
-
-def _host(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 def _check_overwrite(path: str, overwrite: bool):

@@ -1,6 +1,5 @@
 """1-D compressible Euler equations on a periodic domain, the truth model
-of the Euler pipeline (counterpart of ``gp_bayesopinf_tpu/models/euler.py``;
-plotting is left out).
+of the Euler pipeline (counterpart of ``gp_bayesopinf_tpu/models/euler.py``).
 
 Conservative variables (rho, rho v, rho e) with an ideal-gas closure
 (gamma = 1.4) are integrated with first-order upwind differences; the
@@ -15,7 +14,7 @@ import numpy as np
 import torch
 
 from ..solve.ivp import rk4_solve
-from ..utils.device import DeviceLike
+from ..utils.device import DeviceLike, to_host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +130,140 @@ class Euler:
         q0 = self.unlift(initial_conditions)
         t = torch.as_tensor(t_np, dtype=q0.dtype, device=q0.device)
         return self.lift(rk4_solve(self.derivative, q0, t, substeps=substeps))
+
+    # -- visualization ------------------------------------------------------------
+    # matplotlib renderings of solved trajectories. They take tensors on any
+    # device or NumPy arrays and draw from host copies; matplotlib is
+    # imported inside each method, so the solve path never pays for it.
+    def _format_space_axes(self, axes):
+        x = np.asarray(self.spatial_domain)
+        axes[-1].set_xlim(x[0], x[-1])
+        axes[-1].set_xlabel(r"$x$")
+        axes[0].set_ylabel("Velocity")
+        axes[1].set_ylabel("Pressure")
+        axes[2].set_ylabel("Density")
+
+    def plot_space(self, vpzeta):
+        """Velocity / pressure / density over space at one instant of a
+        (3nx,) lifted state."""
+        import matplotlib.pyplot as plt
+
+        v, p, zeta = np.split(to_host(vpzeta), 3, axis=0)
+        fig, axes = plt.subplots(3, 1, sharex=True)
+        x = np.asarray(self.spatial_domain)
+        axes[0].plot(x, v)
+        axes[1].plot(x, p)
+        axes[2].plot(x, 1.0 / zeta)
+        self._format_space_axes(axes)
+        return fig, axes
+
+    def plot_time(self, t, series):
+        """One lifted variable at a fixed spatial point over time."""
+        import matplotlib.pyplot as plt
+
+        t, series = to_host(t), to_host(series)
+        fig, ax = plt.subplots(1, 1, figsize=(6, 2))
+        ax.plot(t, series)
+        ax.set_xlim(float(t[0]), float(t[-1]))
+        ax.set_xlabel(r"$t$")
+        return fig, ax
+
+    def plot_traces(self, t, vpzeta, nlocs: int = 20, cmap=None, isdata=False):
+        """Time traces of all three variables at ``nlocs`` spatial points,
+        colored by location, with a colorbar."""
+        import matplotlib.colors as mcolors
+        import matplotlib.pyplot as plt
+
+        t = to_host(t)
+        v, p, zeta = np.split(to_host(vpzeta), 3, axis=0)
+        nx = v.shape[0]
+        xlocs = np.linspace(0, nx, nlocs + 1, dtype=int)[:-1]
+        xlocs += max(xlocs[1] // 2, 0) if nlocs > 1 else 0
+        cmap = cmap or plt.cm.twilight
+        colors = cmap(np.linspace(0, 1, nlocs + 1)[:-1])
+
+        fig, axes = plt.subplots(3, 1, sharex=True, figsize=(12, 6))
+        ls = "." if isdata else "-"
+        for j, c in zip(xlocs, colors):
+            axes[0].plot(t, v[j], ls, color=c, lw=1)
+            axes[1].plot(t, p[j], ls, color=c, lw=1)
+            axes[2].plot(t, 1.0 / zeta[j], ls, color=c, lw=1)
+        axes[-1].set_xlim(t[0], t[-1])
+        axes[-1].set_xlabel(r"$t$")
+        axes[0].set_ylabel("Velocity")
+        axes[1].set_ylabel("Pressure")
+        axes[2].set_ylabel("Density")
+
+        x = np.asarray(self.spatial_domain)
+        mappable = plt.cm.ScalarMappable(
+            norm=mcolors.Normalize(vmin=0, vmax=1),
+            cmap=mcolors.LinearSegmentedColormap.from_list(
+                "euler", cmap(np.linspace(0, 1, 400)), N=nlocs
+            ),
+        )
+        cbar = fig.colorbar(mappable, ax=axes, pad=0.015)
+        cbar.set_ticks(x[xlocs] / (x[-1] - x[0]))
+        cbar.set_ticklabels([f"{xx:.2f}" for xx in x[xlocs]])
+        cbar.set_label(r"spatial coordinate $x$")
+        return fig, axes
+
+    def plot_spacetime(self, t, vpzeta):
+        """pcolormesh of velocity, pressure and density over space-time of
+        a (3nx, k) lifted trajectory."""
+        import matplotlib.pyplot as plt
+
+        arr = to_host(vpzeta)
+        if arr.ndim != 2:
+            raise ValueError("argument 'vpzeta' must be two dimensional")
+        v, p, zeta = np.split(arr, 3, axis=0)
+        x = np.asarray(self.spatial_domain)
+        X, T = np.meshgrid(x, to_host(t), indexing="ij")
+
+        fig, axes = plt.subplots(3, 1, sharex=True, sharey=True, figsize=(6, 6))
+        for var, ax, title in zip(
+            (v, p, 1.0 / zeta), axes, ("Velocity", "Pressure", "Density")
+        ):
+            cdata = ax.pcolormesh(X, T, var, shading="nearest", cmap="viridis")
+            fig.colorbar(cdata, ax=ax, extend="both")
+            ax.set_ylabel(r"$t$")
+            ax.set_title(title)
+        axes[-1].set_xlabel(r"$x$")
+        return fig, axes
+
+    def animate(self, profile, skip: int = 20, saveas=None):
+        """Animate a lifted (3nx, k) trajectory, every ``skip``-th time;
+        returns the ``FuncAnimation`` (``.to_jshtml()`` embeds it in a
+        notebook) and saves it to ``saveas`` if given."""
+        import matplotlib.animation as manimation
+        import matplotlib.pyplot as plt
+
+        profile = to_host(profile)
+        if profile.ndim != 2:
+            raise ValueError("two-dimensional data required for animation")
+        data = np.split(profile, 3, axis=0)
+        x = np.asarray(self.spatial_domain)
+
+        fig, axes = plt.subplots(3, 1, sharex=True, figsize=(6, 6), dpi=150)
+        lines = [ax.plot([], [])[0] for ax in axes]
+
+        def update(index):
+            for line, var in zip(lines, data):
+                line.set_data(x, var[:, index * skip])
+            axes[0].set_title(rf"$t = t_{{{index * skip}}}$")
+            return lines
+
+        for ax, var in zip(axes, data):
+            ax.set_ylim(var.min() * 0.95, var.max() * 1.05)
+        self._format_space_axes(axes)
+
+        ani = manimation.FuncAnimation(
+            fig, update, frames=profile.shape[1] // skip, interval=30,
+            blit=True,
+        )
+        plt.close(fig)
+        if saveas:
+            ani.save(saveas)
+        return ani
 
     # -- noise --------------------------------------------------------------------
     def noise(

@@ -1,7 +1,6 @@
 """Forced 1-D heat equation with Dirichlet boundary conditions, and its
 cubic-reaction variant: the truth models of the multi-trajectory
-pipeline (counterpart of ``gp_bayesopinf_tpu/models/heat.py``; plotting
-and animation are left out).
+pipeline (counterpart of ``gp_bayesopinf_tpu/models/heat.py``).
 
     q_t = kappa q_xx [- q^3] + f(x, t),    q(0, t) = left_bc, q(L, t) = right_bc
     f(x, t) = a sin(2 pi t) / (1 + 100 (x - 1/4)^2)
@@ -27,6 +26,7 @@ import torch
 
 from ..ops.cahbn_screen import input_stage_times
 from ..solve.ivp import dirk2_solve, dirk2_solve_np
+from ..utils.device import to_host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,6 +228,123 @@ class HeatBimodal:
             [torch.full((1, k), self.left_bc, **like), sol,
              torch.full((1, k), self.right_bc, **like)]
         )
+
+    # -- visualization -----------------------------------------------------------
+    # matplotlib renderings from host copies of tensors on any device or of
+    # NumPy arrays; matplotlib is imported inside each method.
+    def _pad_bcs(self, states) -> np.ndarray:
+        """Append the Dirichlet boundary rows when states cover the interior
+        points only."""
+        states = np.atleast_2d(to_host(states))
+        if states.shape[-1] == self.N:
+            left = np.full((states.shape[0], 1), self.left_bc)
+            right = np.full((states.shape[0], 1), self.right_bc)
+            states = np.hstack([left, states, right])
+        return states
+
+    def plot_space(self, state, ax=None):
+        """q(x) at one or more instants (interior-only input is padded with
+        the boundary values)."""
+        import matplotlib.pyplot as plt
+
+        state = self._pad_bcs(state)
+        if ax is None:
+            _, ax = plt.subplots(1, 1, figsize=(6, 3))
+        x = np.asarray(self.spatial_domain)
+        for row in state:
+            ax.plot(x, row)
+        ax.set_xlim(x[0], x[-1])
+        ax.set_xlabel(r"$x$")
+        return ax
+
+    def plot_time(self, timepoints, state, ax=None):
+        """q(t) at one or more spatial points."""
+        import matplotlib.pyplot as plt
+
+        state = np.atleast_2d(to_host(state))
+        if ax is None:
+            _, ax = plt.subplots(1, 1, figsize=(6, 3))
+        t = to_host(timepoints)
+        for row in state:
+            ax.plot(t, row)
+        ax.set_xlim(t[0], t[-1])
+        ax.set_xlabel(r"$t$")
+        return ax
+
+    def plot_spacetime(self, timepoints, states, nlines: int = 6):
+        """A fan of snapshots beside a space-time heat map of (N+2, k) (or
+        interior (N, k)) states."""
+        import matplotlib.pyplot as plt
+
+        t = to_host(timepoints)
+        states = to_host(states)
+        if states.ndim != 2:
+            raise ValueError("states must be two-dimensional")
+        states = self._pad_bcs(states.T).T if states.shape[0] == self.N else states
+        if states.shape != (self.N + 2, t.size):
+            raise ValueError("timepoints and states not aligned")
+        x = np.asarray(self.spatial_domain)
+        X, T = np.meshgrid(x, t, indexing="ij")
+
+        fig, (ax1, ax2) = plt.subplots(1, 2, figsize=(12, 2))
+        colors = iter(plt.cm.viridis(np.linspace(0.25, 1, nlines)))
+        for j in np.linspace(0, t.size - 1, nlines).astype(int):
+            ax1.plot(x, states[:, j], color=next(colors),
+                     label=rf"$q(x, t_{{{j}}})$")
+        ax1.set_xlim(x[0], x[-1])
+        ax1.set_xlabel(r"$x$")
+        cdata = ax2.pcolormesh(X, T, states, shading="nearest", cmap="magma")
+        ax2.set_xlabel(r"$x$")
+        ax2.set_ylabel(r"$t$")
+        fig.colorbar(cdata, ax=ax2, extend="both")
+        fig.subplots_adjust(left=0.2, wspace=0.15)
+        ax1.legend(loc="center left", edgecolor="none", frameon=False,
+                   bbox_to_anchor=(0, 0.5), bbox_transform=fig.transFigure)
+        fig.suptitle(r"Temperature $q(x, t)$")
+        return fig, [ax1, ax2]
+
+    def animate(self, profiles, labels=None, titles: bool = True, saveas=None):
+        """Animate one or more (N+2, k) trajectories; returns the
+        ``FuncAnimation`` (``.to_jshtml()`` for notebooks) and saves it to
+        ``saveas`` if given."""
+        import matplotlib.animation as manimation
+        import matplotlib.pyplot as plt
+
+        profiles = to_host(profiles)
+        if profiles.ndim == 1:
+            raise ValueError("two-dimensional data required for animation")
+        if profiles.ndim == 2:
+            profiles = profiles[None]
+        draw_legend = labels is not None
+        labels = labels if draw_legend else [None] * len(profiles)
+        x = np.asarray(self.spatial_domain)
+
+        fig, ax = plt.subplots(1, 1, figsize=(6, 4), dpi=200)
+        lines = [ax.plot([], [], lw=2, label=lab)[0] for lab in labels]
+
+        def update(index):
+            for line, states in zip(lines, profiles):
+                line.set_data(x, states[:, index])
+            if titles:
+                ax.set_title(rf"$t = t_{{{index}}}$")
+            return lines
+
+        ax.set_xlim(x[0], x[-1])
+        ax.set_ylim(profiles.min() - 0.2, profiles.max() + 0.2)
+        if draw_legend:
+            fig.subplots_adjust(left=0.25)
+            ax.legend(loc="center left", edgecolor="none", frameon=False,
+                      bbox_to_anchor=(0, 0.5), bbox_transform=fig.transFigure)
+        else:
+            ax.set_ylabel(r"$q(x, t)$")
+
+        ani = manimation.FuncAnimation(
+            fig, update, frames=profiles[0].shape[1], interval=5, blit=True
+        )
+        plt.close(fig)
+        if saveas:
+            ani.save(saveas)
+        return ani
 
     # -- noise -------------------------------------------------------------------
     def noise(

@@ -1,6 +1,5 @@
 """SEIRD epidemic models, the truth models of the ODE pipeline
-(counterpart of ``gp_bayesopinf_tpu/models/seird.py``; plotting is left
-out).
+(counterpart of ``gp_bayesopinf_tpu/models/seird.py``).
 
 Two parameterizations:
 
@@ -30,6 +29,7 @@ import numpy as np
 import torch
 
 from ..solve.ivp import rk4_solve, rk4_solve_np
+from ..utils.device import to_host
 
 
 def _truncnorm_noise_np(rng: np.random.Generator, states, noise_level: float) -> np.ndarray:
@@ -178,6 +178,65 @@ class SEIRD2:
         if not noise_level:
             return np.asarray(states)
         return _truncnorm_noise_np(rng, states, noise_level)
+
+    # -- visualization ------------------------------------------------------------
+    # matplotlib renderings from host copies of tensors on any device or of
+    # NumPy arrays; matplotlib is imported inside each method.
+    @classmethod
+    def plot(cls, time_domain, states, ls=".", ax=None):
+        """Overlay every state variable on one axes."""
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots(1, 1, figsize=(12, 6))
+        t = to_host(time_domain)
+        for var, label in zip(to_host(states), cls.LABELS):
+            ax.plot(t, var, ls, lw=2, label=label)
+        ax.set_xlim(left=t[0])
+        ax.set_xlabel("$t$")
+        ax.set_ylabel("States")
+        ax.legend()
+        return ax.get_figure(), ax
+
+    @classmethod
+    def plot_phase(cls, t, states, variables=(0, 1), fig=None):
+        """Two state trajectories stacked on the left and their phase
+        portrait on the right."""
+        import matplotlib.pyplot as plt
+
+        states = to_host(states)
+        if len(states) != 2:
+            states = np.array([states[variables[0]], states[variables[1]]])
+        if fig is None:
+            fig = plt.figure(constrained_layout=True, figsize=(9, 4))
+            spec = fig.add_gridspec(
+                nrows=2, ncols=2, hspace=0.1, wspace=0.15,
+                width_ratios=[1.5, 1], height_ratios=[1, 1],
+            )
+            fig.add_subplot(spec[0, 0])
+            fig.add_subplot(spec[1, 0])
+            fig.add_subplot(spec[:, 1])
+        axes = fig.axes
+        if len(axes) != 3:
+            raise ValueError("figure should have 3 Axes")
+
+        t = to_host(t)
+        axes[0].plot(t, states[0], "C0", lw=1)
+        axes[0].plot([t[0]], [states[0, 0]], "ko")
+        axes[1].plot(t, states[1], "C1", lw=1)
+        axes[1].plot([t[0]], [states[1, 0]], "ko")
+        axes[2].plot(states[0], states[1], "C3", lw=1)
+        axes[2].plot([states[0, 0]], [states[1, 0]], "ko")
+
+        axes[0].set_xticks([])
+        axes[0].set_ylabel(cls.LABELS[variables[0]])
+        axes[1].set_xlabel("$t$")
+        axes[1].set_ylabel(cls.LABELS[variables[1]])
+        fig.align_ylabels([axes[0], axes[1]])
+        axes[2].set_xlabel(cls.LABELS[variables[0]])
+        axes[2].set_ylabel(cls.LABELS[variables[1]])
+        axes[2].set_title("Phase plot")
+        return fig
 
     def cah_operators(self, params: torch.Tensor) -> torch.Tensor:
         """Quadratic "cAH" operator rows equivalent to ``derivative``.

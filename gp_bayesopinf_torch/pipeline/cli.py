@@ -399,20 +399,26 @@ def _serve() -> int:
     Blank lines and ``#`` lines are skipped; ``quit``, ``exit`` or end of
     input ends the session, with 0. After each command's own output comes
     one flushed JSON ack line, ``{"serve": {"rc": ..., "wall_s": ...,
-    "argv": [...], "launches": {...}}}``, with ``"error"`` on failure: rc
-    2 for a request that does not decode (``"argv": null``), a nested
-    ``serve`` or argv that the parser rejects, rc 1 for a run that raised.
+    "argv": [...], "launches": {...}, "family_launches": {...}}}``, with
+    ``"error"`` on failure: rc 2 for a request that does not decode
+    (``"argv": null``), a nested ``serve`` or argv that the parser
+    rejects, rc 1 for a run that raised.
     No failed command ends the server. ``launches`` counts the screen
-    kernels' launches during the command (the wrappers' counters).
+    kernels' launches during the command (the wrappers' counters), and
+    ``family_launches`` the same launches by kernel family.
     """
     import json
     import time
 
     from ..ops import cahbn_screen, ensemble_screen
 
+    kernels = {"quadratic_ensemble_screen": ensemble_screen, "cahbn_ensemble_screen": cahbn_screen}
+
     def counts():
-        return {"quadratic_ensemble_screen": ensemble_screen.launches,
-                "cahbn_ensemble_screen": cahbn_screen.launches}
+        return {name: mod.launches for name, mod in kernels.items()}
+
+    def family_counts():
+        return {name: dict(mod.family_launches) for name, mod in kernels.items()}
 
     for line in sys.stdin:
         line = line.strip()
@@ -420,7 +426,7 @@ def _serve() -> int:
             continue
         if line in ("quit", "exit"):
             break
-        t0, before = time.perf_counter(), counts()
+        t0, before, families = time.perf_counter(), counts(), family_counts()
         argv = None
         try:
             argv = _decode_request(line)
@@ -440,6 +446,9 @@ def _serve() -> int:
         ack["wall_s"] = time.perf_counter() - t0
         ack["argv"] = argv
         ack["launches"] = {name: n - before[name] for name, n in counts().items()}
+        ack["family_launches"] = {
+            name: {family: n - families[name][family] for family, n in by_family.items()}
+            for name, by_family in family_counts().items()}
         print(json.dumps({"serve": ack}), flush=True)
     return 0
 

@@ -92,3 +92,20 @@ class HeatMultiConfig:
     seed: int = 29012024
     fom_substeps: int = 4
     rom_substeps: int = 4
+
+
+# -- file-name formatters ---------------------------------------------------------
+def TRNFMT(k: int) -> str:
+    return f"trainsize{k:0>3d}"
+
+
+def SPRSFMT(sparsity: float) -> str:
+    return f"sparsity{int(sparsity * 100):0>3d}"
+
+
+def NOISEFMT(level: float) -> str:
+    return "noise000" if not level else f"noise{int(level * 100):0>3d}"
+
+
+def DIMFMT(i: int) -> str:
+    return f"mode{i:0>2d}"

@@ -8,8 +8,7 @@ import os
 import time
 from typing import Optional, Tuple
 
-import numpy as np
-import torch
+from ..utils.device import to_host as _host
 
 
 def figures_path(base: str = "figures") -> str:
@@ -18,12 +17,6 @@ def figures_path(base: str = "figures") -> str:
     folder = os.path.join(base, time.strftime("%b%d").lower(), time.strftime("%H-%M-%S"))
     os.makedirs(folder, exist_ok=True)
     return folder
-
-
-def _host(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 def _array2string(arr) -> str:

@@ -66,6 +66,16 @@ class PODBasis:
         lifted = self.entries @ compressed + self.shift_vec[:, None]
         return self._post(lifted)
 
+    def project(self, states: torch.Tensor) -> torch.Tensor:
+        """Round-trip projection of (n, k) states onto the basis span."""
+        return self.decompress(self.compress(states))
+
+    def residual_energy(self) -> torch.Tensor:
+        """1 - the cumulative energy fraction of the leading modes, one
+        entry per singular value."""
+        s2 = self.svdvals**2
+        return 1.0 - torch.cumsum(s2, dim=0) / torch.sum(s2)
+
 
 @dataclasses.dataclass(frozen=True)
 class EulerScaledBasis(PODBasis):
@@ -74,12 +84,20 @@ class EulerScaledBasis(PODBasis):
     v_ref: float = 100.0
     rho_ref: float = 10.0
 
-    def _scale_vec(self, n3: int, like: torch.Tensor) -> torch.Tensor:
-        scalers = torch.tensor(
+    @property
+    def scalers(self) -> torch.Tensor:
+        """(v_ref, rho_ref v_ref^2, 1/rho_ref) on the basis's device, in
+        its dtype."""
+        return self._scalers(self.entries)
+
+    def _scalers(self, like: torch.Tensor) -> torch.Tensor:
+        return torch.tensor(
             [self.v_ref, self.rho_ref * self.v_ref**2, 1.0 / self.rho_ref],
             dtype=like.dtype, device=like.device,
         )
-        return torch.repeat_interleave(scalers, n3 // 3)
+
+    def _scale_vec(self, n3: int, like: torch.Tensor) -> torch.Tensor:
+        return torch.repeat_interleave(self._scalers(like), n3 // 3)
 
     def _pre(self, states: torch.Tensor) -> torch.Tensor:
         return states / self._scale_vec(states.shape[-2], states)[:, None]

@@ -9,6 +9,7 @@ CUDA on a machine without it is an error.
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device]
@@ -23,3 +24,10 @@ def resolve_device(device: DeviceLike) -> torch.device:
             "is false"
         )
     return dev
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor on any device, or anything NumPy takes, as a host array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -4,8 +4,9 @@ GP, the regression, both screens, a cAHBN ROM integration with inputs and
 a SEIRD search and ensemble leaves ``jax`` out of ``sys.modules``; the
 SEIRD part, the low-rank Euler route, the Tikhonov regularizers, the
 tall-matrix factorizations, ``run_scaled``, the ``scaled`` command line,
-a named workload, the HDF5 export, the scaled checkpoint, ``serve`` and
-``warmup`` (its workloads replaced) run with ``jax`` and
+a named workload, the HDF5 export, the paper's SEIRD figure drawn by
+``gp_bayesopinf_torch.viz`` from a port export, the scaled checkpoint,
+``serve`` and ``warmup`` (its workloads replaced) run with ``jax`` and
 ``gp_bayesopinf_tpu`` blocked from import, and so does ``scaled --devices
 2`` in two gloo ranks, whose processes find packages of those names that
 refuse to import."""
@@ -78,7 +79,7 @@ from gp_bayesopinf_torch.pipeline import GPBounds, SEIRDConfig, run_seird
 cfg = SEIRDConfig(time_domain=np.linspace(0, 90, 31),
                   gp_bounds=GPBounds((1e-8, 1e5), (0.1, 100.0), (1e-16, 0.5), 4),
                   reg_grid=np.logspace(-6, 2, 3))
-res = run_seird((0.0, 60.0), 24, 0.05, 32, ndraws=8, config=cfg, device="cpu", verbose=False)
+res = seird_res = run_seird((0.0, 60.0), 24, 0.05, 32, ndraws=8, config=cfg, device="cpu", verbose=False)
 assert res.draws.shape == (8, 5, 31) and res.regularizer > 0
 model = res.model
 post = res.bayesian_model.posterior
@@ -118,12 +119,21 @@ assert out.window_regularizers.shape == (2,) and out.weight_ranks.shape == (2, 2
 assert cli.main(tiny + ["--modelform", "cAH", "--regularization", "blocked"]) == 0
 
 # The service layer: export, checkpoint, serve and warmup.
-import io, json, tempfile
+import io, json, os, tempfile
 from gp_bayesopinf_torch.io import export_result, load_bayesian_rom
 
 scratch = tempfile.mkdtemp()
 export_result(res, scratch + "/euler")
 assert load_bayesian_rom(scratch + "/euler_posterior.h5", device="cpu").ndims == 2
+
+# The plotting layer draws the paper's SEIRD figure from a port export.
+import matplotlib
+matplotlib.use("Agg")
+from gp_bayesopinf_torch.viz import paper
+export_result(seird_res, scratch + "/seird")
+figs = paper.seird_figure(scratch + "/seird", savedir=scratch + "/figures")
+assert sorted(figs) == ["seird_draws", "seird_posterior", "seird_train"], figs
+assert all(os.path.getsize(f) > 0 for f in figs.values())
 ckpt = tiny + ["--checkpoint-dir", scratch]
 first, again = cli.run(ckpt), cli.run(ckpt)
 assert "gp_fit" in first.stage_seconds and "gp_fit" not in again.stage_seconds
