@@ -40,13 +40,17 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    9, nu = 2, k = 500 without the error term, L = 5) against the runtime
    kernel and timed in turns; then both forced at r = 5, nu = 2 against
    the templated instance;
-4c. the runtime-dimension kernels in the range only they serve: kernel
-   A at r = 40 (k = 400 with the error term) and kernel B at (r, nu) =
-   (20, 2) and (6, 5) (k = 80 with it), G = 16, nd = 20, each against its
-   plain version and timed with CUDA events on the same inputs, beside
-   its bound; their launches on the main paths are read from every
-   main-path run below (by the wrappers' per-family counts) and must be
-   0;
+4c. the wide kernels, which the wrappers choose above the capacity
+   kernels, with the runtime-dimension kernels forced beside them:
+   kernel A at r = 40 and 64 (k = 400 with the error term), kernel B at
+   (r, nu) = (20, 2) and (6, 5) (k = 80 with it) and at (45, 2) and (46,
+   2) (k = 5: the largest operator the wide kernel stages in shared
+   memory at nu = 2, and the smallest it reads from device scratch), G =
+   16, nd = 20: each kernel against the plain version on the inputs it is
+   timed on, the two kernels' flags against each other, the two timed in
+   turns with CUDA events, beside the bound; both families' launches on
+   the main paths are read from every main-path run below (by the
+   wrappers' per-family counts) and must be 0;
 5. run the full ex1a workload through the port's CLI entry
    (``euler 0.06 200 0.03 400 6 --ndraws 600`` on ``cuda``) and check
    that the grid search went through kernel A, two launches per objective
@@ -287,8 +291,9 @@ def hold(name, s_k, e_k, s_p, e_p, maxdev, limits, G, nd, track, batched):
     return float((e_k[ok] - e_p[ok]).abs().max())
 
 
-def cuda_ms(fn, reps):
-    fn()  # warm up
+def cuda_ms(fn, reps, warm=True):
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -304,12 +309,13 @@ def f32(a):
     return {n: None if v is None else v.to(torch.float32).contiguous() for n, v in a.items()}
 
 
-def held(name, screen, plain, a, kw, G, batched):
+def held(name, screen, plain, a, kw, G, batched, keep_plain=False):
     """The screen entry ``screen`` on case ``a`` with keywords ``kw``,
     against its plain version ``plain`` on the float32 copy, timed with
     CUDA events; the two held by ``hold``. Returns the float32 copy, the
     kernel's (stable, err_sq), the largest |err_sq difference| and the
-    plain version's milliseconds."""
+    plain version's milliseconds, and with ``keep_plain`` the plain
+    version's (stable, err_sq, maxdev) last."""
     f = f32(a)
     s_k, e_k = screen(*a.values(), **kw)
     torch.cuda.synchronize()
@@ -321,7 +327,8 @@ def held(name, screen, plain, a, kw, G, batched):
     torch.cuda.synchronize()
     err = hold(name, s_k, e_k, s_p, e_p, maxdev, f["limits"], G, kw["nd"], kw["track_error"],
                batched)
-    return f, s_k, e_k, err, start.elapsed_time(stop)
+    out = f, s_k, e_k, err, start.elapsed_time(stop)
+    return out + ((s_p, e_p, maxdev),) if keep_plain else out
 
 
 def bound_ms(flops, nbytes):
@@ -521,10 +528,11 @@ def same_bits(name, s_new, e_new, s_old, e_old):
         f"{e_new[differ].tolist()} against {e_old[differ].tolist()}")
 
 
-def in_turns(old, new, reps):
-    """CUDA-event milliseconds of two calls in the order old, new, new, old;
+def in_turns(old, new, reps, warm=True):
+    """CUDA-event milliseconds of two calls in the order old, new, new, old,
+    each warmed up first unless both have just run (``warm=False``);
     returns (old's two times, new's two times)."""
-    t = [cuda_ms(fn, reps) for fn in (old, new, new, old)]
+    t = [cuda_ms(fn, reps, warm) for fn in (old, new, new, old)]
     return [t[0], t[3]], [t[1], t[2]]
 
 
@@ -698,53 +706,87 @@ def capacity_b_phase():
     return out
 
 
-def runtime_phase():
-    """Phase 4c: the runtime-dimension kernels in the range that only
-    they serve: kernel A at r = 40 (above the capacity kernel's 32; d =
-    861, k = 400) and kernel B at (r, nu) = (20, 2) and (6, 5) (above r 16
-    or nu 4; k = 80), G = 16, nd = 20, with the error term, on phase 3's
-    and 4's cases. Each against its plain version on the inputs it is
-    timed on: identical flags, err_sq within rtol 1e-3. Returns the JSON
-    fields of each shape."""
+def wide_phase_4c():
+    """Phase 4c: the wide kernels in the range the wrappers give them,
+    with the runtime-dimension kernels forced beside them: kernel A at r
+    = 40 (d = 861, its operator in registers) and r = 64 (d = 2145, 549 KB
+    a draw: rows past the registers in shared memory and device memory),
+    k = 400; kernel B at (r, nu) = (20, 2) and (6, 5), k = 80, and at (45,
+    2) and (46, 2), k = 5, the largest (r, nu) at nu = 2 whose operator the
+    wide kernel stages in shared memory and the smallest it reads from
+    device scratch (the plain version's time grows with r^2 launches a
+    Newton step, so these two are held at the k they are timed at); G = 16,
+    nd = 20, with the error term, on phase 3's and 4's cases. Each shape:
+    the wide kernel, chosen by the wrapper, against the plain version on
+    the inputs it is timed on (identical flags, err_sq within rtol 1e-3);
+    the runtime kernel forced on the same inputs against the plain version
+    and against the wide kernel (identical flags); the two timed in turns
+    (runtime, wide, wide, runtime) with CUDA events. Returns each shape's
+    JSON fields for both kernels: {label: {"wide": ..., "runtime": ...}}."""
     from gp_bayesopinf_torch.ops import cahbn_screen as cs
     from gp_bayesopinf_torch.ops import ensemble_screen as es
 
     rng = np.random.default_rng(20261019)
     G, nd = 16, 20
     out = {}
-    for r, nu in ((40, None), (20, 2), (6, 5)):
+    scratch = cs._library().gpboi_cahbn_wide_scratch
+    assert scratch(45, 2) == 0 < scratch(46, 2), "B's wide kernel stages (45, 2) and not (46, 2)"
+    # (r, nu, k, timing repetitions); nu None for kernel A.
+    for r, nu, k, reps in ((40, None, 400, 1), (64, None, 400, 1), (20, 2, 80, 3), (6, 5, 80, 3),
+                           (45, 2, 5, 3), (46, 2, 5, 3)):
         if nu is None:  # kernel A
-            mod, screen, k, label = es, es.quadratic_ensemble_screen, 400, f"A r={r}"
+            mod, screen, label = es, es.quadratic_ensemble_screen, f"A r={r}"
             wrapper = es.quadratic_ensemble_screen_cuda
             family = es.screen_family(r)
             a = screen_case(G, nd, k, 0.06, rng, True, r=r)
             kw = dict(nd=nd, substeps=8, track_error=True)
             work, steps, per = quadratic_flops(G * nd, r, k, 8), (k - 1) * 8 * 4, "rhs"
         else:
-            mod, screen, k, label = cs, cs.cahbn_ensemble_screen, 80, f"B r={r} nu={nu}"
+            mod, screen, label = cs, cs.cahbn_ensemble_screen, f"B r={r} nu={nu}"
             wrapper = cs.cahbn_ensemble_screen_cuda
             family = cs.screen_family(r, nu)
             a = cahbn_case(G, nd, k, 1.0, rng, True, r=r, nu=nu)
             kw = dict(nd=nd, substeps=4, newton_iters=6, track_error=True)
-            # Neither kernel integrates a draw whose operator is NaN.
+            # No kernel integrates a draw whose operator is NaN.
             nan_draws = int(torch.isnan(a["Ohat"]).flatten(1).any(dim=1).sum())
             work = cahbn_flops(G * nd - nan_draws, r, nu, k, 4, 6)
             steps, per = (k - 1) * 4 * 2 * 6, "newton_step"
-        assert family == "runtime", (label, family)
-        before = mod.family_launches["runtime"]
-        f, s_k, e_k, err, plain_ms = held(label, screen, mod._plain, a, kw, G, False)
-        assert mod.family_launches["runtime"] == before + 1
-        ms = cuda_ms(lambda: wrapper(*f.values(), **kw), 3)
+        assert family == "wide", (label, family)
+        before = dict(mod.family_launches)
+        f, s_w, e_w, err_w, plain_ms, (s_p, e_p, maxdev) = held(
+            label, screen, mod._plain, a, kw, G, False, keep_plain=True)
+        assert mod.family_launches["wide"] == before["wide"] + 1
+        s_r, e_r = wrapper(*f.values(), **kw, family="runtime")
+        torch.cuda.synchronize()
+        assert mod.family_launches["runtime"] == before["runtime"] + 1
+        err_r = hold(f"{label} runtime", s_r, e_r, s_p, e_p, maxdev, f["limits"], G, nd, True,
+                     False)
+        assert torch.equal(s_w, s_r), (
+            f"{label}: wide and runtime flags differ: {torch.nonzero(s_w != s_r).tolist()}")
+        # Both kernels have just run on these inputs: no warm-up calls (the
+        # runtime kernel takes seconds a call at r 64).
+        old, new = in_turns(lambda: wrapper(*f.values(), **kw, family="runtime"),
+                            lambda: wrapper(*f.values(), **kw), reps, warm=False)
+        ms, ms_old = sum(new) / 2, sum(old) / 2
         bound, by = bound_ms(work, screen_bytes(f.values(), G * nd, G))
-        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                          max_abs_err=err, shape=f"G {G}, nd {nd}, r {r}"
-                          + ("" if nu is None else f", nu {nu}") + f", k {k}, error term",
-                          **{f"ns_per_{per}": 1e6 * ms / steps})
-        print(f"[kernel {label}, runtime] G={G} nd={nd} k={k} with error: flags identical to the "
-              f"plain version ({int(s_k.sum())}/{s_k.numel()} stable), err_sq max abs diff "
-              f"{err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events; plain one "
-              f"run), bound {bound:.4f} ms ({by}, {ms / bound:.0f}x); {1e6 * ms / steps:.1f} ns "
-              f"per {per.replace('_', ' ')}", flush=True)
+        shape = (f"G {G}, nd {nd}, r {r}" + ("" if nu is None else f", nu {nu}")
+                 + f", k {k}, error term")
+        common = dict(plain_ms=plain_ms, bound_ms=bound, bound_by=by, shape=shape)
+        out[label] = {
+            "wide": dict(common, ms=ms, runtime_ms=ms_old, max_abs_err=err_w,
+                         **{f"ns_per_{per}": 1e6 * ms / steps}),
+            "runtime": dict(common, ms=ms_old, max_abs_err=err_r,
+                            **{f"ns_per_{per}": 1e6 * ms_old / steps}),
+        }
+        print(f"[kernel {label}, wide] G={G} nd={nd} k={k} with error: flags identical to the "
+              f"plain version ({int(s_w.sum())}/{s_w.numel()} stable) and to the runtime "
+              f"kernel's, err_sq max abs diff {err_w:.3e} (runtime kernel {err_r:.3e}); in turns "
+              f"(runtime, wide, wide, runtime): {old[0]:.3f}, {new[0]:.3f}, {new[1]:.3f}, "
+              f"{old[1]:.3f} ms "
+              f"({ms_old / ms:.2f}x); plain {plain_ms:.3f} ms (CUDA events, one run), bound "
+              f"{bound:.4f} ms ({by}; wide {ms / bound:.1f}x, runtime {ms_old / bound:.0f}x); "
+              f"{1e6 * ms / steps:.1f} ns per {per.replace('_', ' ')} (runtime kernel "
+              f"{1e6 * ms_old / steps:.1f})", flush=True)
     return out
 
 
@@ -763,24 +805,30 @@ def read_launches():
             "cahbn_ensemble_screen": cahbn_screen.launches}
 
 
-def runtime_launches():
-    """Each kernel's runtime-dimension family's launches since the last
-    ``reset_launches``."""
+# The families that no main path reaches: phase 4c's.
+PHASE_4C_FAMILIES = ("runtime", "wide")
+
+
+def phase_4c_launches():
+    """Each kernel's launches of the runtime and the wide families since the
+    last ``reset_launches``: {kernel: {family: launches}}."""
     from gp_bayesopinf_torch.ops import cahbn_screen, ensemble_screen
 
-    return {"quadratic_ensemble_screen": ensemble_screen.family_launches["runtime"],
-            "cahbn_ensemble_screen": cahbn_screen.family_launches["runtime"]}
+    return {name: {f: mod.family_launches[f] for f in PHASE_4C_FAMILIES}
+            for name, mod in (("quadratic_ensemble_screen", ensemble_screen),
+                              ("cahbn_ensemble_screen", cahbn_screen))}
 
 
-# The runtime-dimension kernels' launches on the main paths: every main
-# path's run adds its counts (``runtime_launches``, or a child process's)
+# The runtime and wide kernels' launches on the main paths: every main
+# path's run adds its counts (``phase_4c_launches``, or a child process's)
 # here just after it ends.
-MAIN_PATH_RUNTIME = dict.fromkeys(KERNELS, 0)
+MAIN_PATH_4C = {name: dict.fromkeys(PHASE_4C_FAMILIES, 0) for name in KERNELS}
 
 
-def tally_runtime(counts=None):
-    for name, n in (counts or runtime_launches()).items():
-        MAIN_PATH_RUNTIME[name] += n
+def tally_4c(counts=None):
+    for name, by_family in (counts or phase_4c_launches()).items():
+        for family in PHASE_4C_FAMILIES:
+            MAIN_PATH_4C[name][family] += by_family[family]
 
 
 def run_counted(argv, kernel):
@@ -811,7 +859,7 @@ def run_counted(argv, kernel):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()[kernel]
-        tally_runtime()
+        tally_4c()
     finally:
         regsearch._kernel_objective = make
     return res, wall, launches, evaluations
@@ -995,7 +1043,7 @@ def scaled_phase():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    tally_runtime()
+    tally_4c()
     print(f"[scaled] wall {wall:.2f} s; stages (s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
     print(f"[scaled] weight roots '{res.weight_method}', retained ranks of the 30 roots "
@@ -1087,7 +1135,7 @@ def windowed_phase():
     t0 = time.perf_counter()
     res = cli.run(SCALED_WINDOWED)
     torch.cuda.synchronize()
-    tally_runtime()
+    tally_4c()
     print(f"[scaled, 4 windows] wall {time.perf_counter() - t0:.2f} s; stages (s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
     print(f"[scaled, 4 windows] window regularizers {res.window_regularizers.tolist()}, stable "
@@ -1156,7 +1204,7 @@ def local_phase():
     res = cli.run(SCALED_LOCAL)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    tally_runtime()
+    tally_4c()
     print(f"[scaled, 8 local windows] wall {wall:.2f} s; stages (s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
     lams = res.window_regularizers
@@ -1269,8 +1317,7 @@ def serve_phase(seird_res, seird_launches):
                                                  seird_launches], counts
     assert not any(a["launches"]["cahbn_ensemble_screen"] for a in acks)
     for ack in acks:
-        tally_runtime({name: by_family["runtime"]
-                       for name, by_family in ack["family_launches"].items()})
+        tally_4c(ack["family_launches"])
     print(f"[serve] every SEIRD answer: lambda {lam}, {n_valid}/600 stable, {seird_launches} "
           "kernel A launches, as phase 7", flush=True)
 
@@ -1322,7 +1369,7 @@ def checkpoint_phase():
         runs.append(cli.run(SCALED + ["--mprime", "512", "--checkpoint-dir", ckpt]))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    tally_runtime()
+    tally_4c()
     first, second = runs
     for res, wall in zip(runs, walls):
         print(f"[checkpoint] wall {wall:.2f} s; stages (s): "
@@ -1370,7 +1417,7 @@ def mesh_scaled_rank(rank, shape):
     torch.cuda.synchronize()
     return dict(scaled_digest(res), wall=time.perf_counter() - t0, collectives=pmesh.collectives,
                 collective_seconds=pmesh.collective_seconds, backend=dist.get_backend(),
-                card=torch.cuda.current_device(), runtime=runtime_launches())
+                card=torch.cuda.current_device(), phase_4c=phase_4c_launches())
 
 
 def search_args(search):
@@ -1407,7 +1454,8 @@ def mesh_pair_rank(rank, search):
     launches = read_launches()["quadratic_ensemble_screen"]
     search_out = dict(grid_errors=res.grid_errors, regularizer=res.regularizer,
                       refined=res.refined, launches=launches, wall=wall,
-                      families=dict(ensemble_screen.family_launches), runtime=runtime_launches())
+                      families=dict(ensemble_screen.family_launches),
+                      phase_4c=phase_4c_launches())
     return dict(search=search_out, scaled=mesh_scaled_rank(rank, {"draw": 2, "mode": 1}))
 
 
@@ -1471,7 +1519,7 @@ def mesh_phase(search, scaled_res):
           f"collectives, {a['collective_seconds']:.3f} s); stages (s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in a["stages"].items()), flush=True)
     compare_scaled("(a) world 1 against one device", a, one, strict=True)
-    tally_runtime(a["runtime"])
+    tally_4c(a["phase_4c"])
 
     args, kw = search_args(search)
     reset_launches()
@@ -1480,7 +1528,7 @@ def mesh_phase(search, scaled_res):
     res1 = auto_regularize(*args, **kw)
     torch.cuda.synchronize()
     wall1, launches1 = time.perf_counter() - t0, read_launches()["quadratic_ensemble_screen"]
-    tally_runtime()
+    tally_4c()
     t0 = time.perf_counter()
     pair = spawn(mesh_pair_rank, 2, ["cuda:0", "cuda:0"], backend="gloo", args=(search,),
                  timeout=900)
@@ -1496,8 +1544,8 @@ def mesh_phase(search, scaled_res):
         assert np.array_equal(srch["grid_errors"], res1.grid_errors), "grid errors differ"
         assert srch["regularizer"] == res1.regularizer and srch["refined"] == res1.refined
         assert 0 < srch["launches"] < launches1
-        tally_runtime(srch["runtime"])
-        tally_runtime(out["scaled"]["runtime"])
+        tally_4c(srch["phase_4c"])
+        tally_4c(out["scaled"]["phase_4c"])
     print(f"[mesh] (b) the {len(res1.grid_errors)}-point grid's errors and lambda equal one "
           f"device's to the bit on both ranks ({int((res1.grid_errors < 1e12).sum())} candidates "
           "accepted)", flush=True)
@@ -1562,7 +1610,7 @@ def main() -> int:
     wide_a = phase("kernel A, capacity", capacity_a_phase)
     fields["cahbn_ensemble_screen"] = phase("kernel B", cahbn_phase)
     wide_b = phase("kernel B, capacity", capacity_b_phase)
-    runtime = phase("kernels A and B, runtime", runtime_phase)
+    wide = phase("kernels A and B, wide and runtime", wide_phase_4c)
     fields["quadratic_ensemble_screen"]["launches"], ex1a_search = phase("ex1a", pipeline_phase)
     fields["cahbn_ensemble_screen"]["launches"] = phase("ex3", heat_phase)
     # Kernel A carries several main paths: its launches are those of all runs.
@@ -1621,16 +1669,19 @@ def main() -> int:
                       family="capacity", shape=f"G 16, nd 20, r {r}, nu {nu}, k 80, error term",
                       launches_path="heat 1.0 20 0.05 80 9, at r 9 and nu 2", **extra(f))
                 for (r, nu), f in wide_b.items()]
-    # The runtime-dimension kernels, in the range only they serve, with
-    # their launches summed over every main-path run: no main path screens
-    # there.
-    print(f"[runtime kernels] launches on the main paths: {MAIN_PATH_RUNTIME}", flush=True)
-    assert not any(MAIN_PATH_RUNTIME.values()), MAIN_PATH_RUNTIME
+    # Phase 4c's shapes: the runtime-dimension kernels and the wide
+    # kernels, with their launches summed over every main-path run: no main
+    # path screens above r 32 (A) or r 16 / nu 4 (B).
+    print(f"[wide and runtime kernels] launches on the main paths: {MAIN_PATH_4C}", flush=True)
+    assert not any(n for by_family in MAIN_PATH_4C.values() for n in by_family.values()), \
+        MAIN_PATH_4C
     none = "none: no main path screens above r 32 (A) or r 16 / nu 4 (B)"
     names = {"A": "quadratic_ensemble_screen", "B": "cahbn_ensemble_screen"}
-    kernels += [entry(names[label[0]], dict(f, launches=MAIN_PATH_RUNTIME[names[label[0]]]),
-                      family="runtime", launches_path=none, **extra(f))
-                for label, f in runtime.items()]
+    for family in ("runtime", "wide"):
+        kernels += [entry(names[label[0]],
+                          dict(f[family], launches=MAIN_PATH_4C[names[label[0]]][family]),
+                          family=family, launches_path=none, **extra(f[family]))
+                    for label, f in wide.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,16 +57,19 @@
 // screening contract; nvcc's multiply-add contraction makes the results
 // differ from the CPU in the last bits.
 //
-// Three kernel families, chosen by (r, nu) in the wrapper
-// (ops/cahbn_screen.py::screen_family) and passed to the C entry, which
-// can be forced to any family that takes (r, nu):
+// Four kernel families, passed to the C entry by code; the wrapper
+// (ops/cahbn_screen.py::screen_family) chooses the templated, capacity or
+// wide family by (r, nu) and can force any family that takes (r, nu):
 //
-// * templated, r 1..8 with nu 1..2: cahbn_screen_kernel<R, NU> above;
-// * capacity-templated, r <= 16 with nu <= 4: cahbn_screen_cap_kernel<RCAP,
-//   4>, RCAP 12 (r <= 12) and 16 (r 13..16);
-// * runtime-(r, nu), any r and nu: cahbn_screen_any_kernel, the path
-//   beyond those and the yardstick the capacity kernel is held against
-//   bit for bit (family "runtime" forces it at any (r, nu)).
+// * templated (0), r 1..8 with nu 1..2: cahbn_screen_kernel<R, NU> above;
+// * capacity-templated (1), r <= 16 with nu <= 4:
+//   cahbn_screen_cap_kernel<RCAP, 4>, RCAP 12 (r <= 12) and 16 (r 13..16);
+// * runtime-(r, nu) (2), any r and nu: cahbn_screen_any_kernel, the
+//   yardstick the capacity kernel is held against bit for bit and the
+//   wide kernel is timed against; only forcing (family "runtime") takes
+//   it;
+// * wide (3), any r and nu: cahbn_screen_wide_kernel, the path beyond r =
+//   16 or nu = 4.
 //
 // Beyond r = 8 or nu = 2 the row and the all-gathered Newton matrix no
 // longer fit in registers, so both other families give a draw a warp (the
@@ -103,6 +106,43 @@
 // lane. The NaN retirement, the clip and max_keep_nan are the runtime
 // kernel's, and so are each row's arithmetic, the per-draw partial sums
 // and hence err_sq, to the bit.
+//
+// Beyond r = 16 or nu = 4 one warp's registers no longer hold the capacity
+// layout (capacity 16 already takes 168 registers and spills 20 B), and
+// the runtime kernel, which keeps everything in shared memory, lets lane 0
+// alone run each back substitution and takes a row's d-term sum and
+// Newton row serially in one lane, ran 172x (20, 2) and 888x (6, 5) its
+// bound. A Newton step is bound by its chain: the right-hand side's d
+// terms, the r x r Newton matrix (r + 2 + nu terms an entry), r pivots
+// and r back substitutions. The wide kernel's design (the wide layout of
+// screen_common.cuh): a draw takes a block of nw = min(8, ceil(r / 4))
+// warps; the features [1, x, ckron(x), u, u ⊗ x] are formed once a Newton
+// step in shared memory, so the input terms B u and N (u ⊗ q) are columns
+// like any other, with nu read at run time and no branch on it in the
+// chain; the right-hand side's rows spread over the warps, four at a time,
+// and each row's columns over the lanes (split by chunks of 32, the four
+// shuffle trees interleaved); the Newton matrix's columns spread over the
+// warps, four at a time, and its rows over the lanes, each entry summed in
+// a fixed order (A[i, j], the quadratic terms in ascending b with 2 x_j at
+// b = j, the input terms). The operator is staged transposed in shared
+// memory with odd row stride r | 1, so that both access patterns are free
+// of bank conflicts; where it does not fit (r 46 and up at nu 2), each
+// block copies it into device scratch in the same layout and the
+// right-hand side reads Ohat's rows (a second instance of the kernel, so
+// that the staged one reads shared memory by its own instructions). For r
+// <= 32 warp 0 alone solves the Newton system, lane i holding row i and
+// F[i] in registers (wide_solve_warp, 8, 16 or 32 columns): each pivot's
+// row shuffled from its lane as it is used, solve_small's operations, and
+// the back substitution by columns: lane i divides its remainder by M[i][i]
+// (div_rn), a shuffle hands dk[i] to the warp, and every lane subtracts
+// M[k][i] dk[i] from its own, so no lane runs the substitution alone.
+// Above r = 32 the block eliminates in shared memory (warps over the rows
+// below the pivot, lanes over its columns, one barrier a pivot) and warp 0
+// back-substitutes by columns. A draw whose state turns NaN stops and
+// reports NaN, as in the runtime kernel. The order of summation differs
+// from the other families' (the back substitution subtracts in descending
+// column order), so flags and err_sq agree with them within float32
+// roundoff, not to the bit.
 
 #include "screen_common.cuh"
 
@@ -845,10 +885,369 @@ cudaError_t launch_cap(const float* Ohat, const float* q0, const float* t_eval,
   return cudaGetLastError();
 }
 
-// The three families, as the wrapper names them (ops/cahbn_screen.py).
+// ---------------------------------------------------------------------------
+// The wide kernel (the wide layout of screen_common.cuh): any (r, nu), the
+// path beyond the capacity kernel's r 16 and nu 4.
+
+constexpr int kWideWarps = 8;     // the most warps a draw's block takes
+constexpr int kWideFeatures = 8;  // features a thread forms from pair codes in registers
+
+// The right-hand side of the features, row by row: warp w takes rows w,
+// w + nw, ..., four at a time, lane j the columns j + 32 t (ascending t) of
+// each, read at rv[i si + c sc]; the four sums by warp_sums, then out(i,
+// sum) in lane 0. All four rows' loads come before any store.
+template <class Out>
+__device__ __forceinline__ void wide_rhs(const float* __restrict__ rv, int si, int sc,
+                                         const WideSmem& S, int r, int d, Out out) {
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const int Q = (d + 31) / 32;
+  for (int i = threadIdx.x >> 5; i < r; i += 4 * nw) {
+    int row[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) row[u] = i + u * nw < r ? i + u * nw : i;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+    for (int t = 0; t < Q; ++t) {
+      const int c = 32 * t + lane;
+      const float f = S.f(c);
+      const size_t o = static_cast<size_t>(c) * sc;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        acc[u] += (c < d ? rv[static_cast<size_t>(row[u]) * si + o] : 0.f) * f;
+    }
+    warp_sums<4>(acc);
+    if (lane == 0) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (u == 0 || row[u] != i) out(row[u], acc[u]);
+    }
+  }
+}
+
+// Columns j of the Newton matrix M = I - hg J(x, u) (rows of stride ms),
+// warp w taking columns w, w + nw, ... four at a time, lane i row i + 32 a.
+// Column c of row i is read at T[c rs + i]. J[i, j] = A[i, j], then the
+// quadratic terms H[i, (max(j, b), min(j, b))] x_b in ascending b (2 x_j
+// at b = j: both factors of x_j^2), then N[i, e r + j] u_e in ascending e.
+__device__ __forceinline__ void wide_newton_matrix(const float* __restrict__ T, int rs,
+                                                   const float* __restrict__ x,
+                                                   const float* __restrict__ u, float hg, int r,
+                                                   int nu, float* __restrict__ M, int ms) {
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const int kH = 1 + r;
+  const int kN = kH + r * (r + 1) / 2 + nu;
+  for (int j0 = threadIdx.x >> 5; j0 < r; j0 += 4 * nw) {
+    int j[4], z[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      j[v] = j0 + v * nw < r ? j0 + v * nw : j0;  // a column past r repeats j0
+      z[v] = kH + j[v] * (j[v] + 1) / 2;
+    }
+    for (int i = lane; i < r; i += 32) {
+      const float* ti = T + i;
+      float col[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) col[v] = ti[(1 + j[v]) * rs];
+      int tri = kH;  // kH + b (b + 1) / 2
+#pragma unroll 2
+      for (int b = 0; b < r; ++b) {
+        const float xb = x[b];
+        float c[4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) c[v] = ti[(b <= j[v] ? z[v] + b : tri + j[v]) * rs];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) col[v] += c[v] * (b == j[v] ? 2.f * xb : xb);
+        tri += b + 1;
+      }
+      for (int e = 0; e < nu; ++e) {
+        const float ue = u[e];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) col[v] += ti[(kN + e * r + j[v]) * rs] * ue;
+      }
+#pragma unroll
+      for (int v = 0; v < 4; ++v) M[i * ms + j[v]] = (i == j[v] ? 1.f : 0.f) - hg * col[v];
+    }
+  }
+}
+
+// Solve M dk = F (F stored as column r of M) for r <= C (8, 16 or 32) in
+// warp 0 alone, lane i holding row i and F[i] in registers: the
+// elimination without pivoting in solve_small's operations (for each pivot
+// p, the entries of row p and F[p] shuffled from lane p as they are used;
+// every lane forms inv = 1 / M[p][p] and the lanes below p update their
+// own rows, f = M[i][p] inv, M[i][j] - f M[p][j], the others keeping
+// theirs); then the back substitution by columns: lane i divides its
+// remainder by M[i][i] (IEEE, div_rn; the others divide 0 by 1), a
+// shuffle hands dk[i] to the warp, and every lane k < i subtracts M[k][i]
+// dk[i] from its own. dk goes to dks.
+template <int C>
+__device__ __forceinline__ void wide_solve_warp(const float* __restrict__ M, int ms, int r,
+                                                float* __restrict__ dks) {
+  const int lane = threadIdx.x & 31;
+  const bool mine = lane < r;
+  float m[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) m[j] = mine && j < r ? M[lane * ms + j] : 0.f;
+  float f = mine ? M[lane * ms + r] : 0.f;
+#pragma unroll
+  for (int p = 0; p < C; ++p) {
+    if (p >= r) break;
+    const float inv = 1.f / __shfl_sync(kFullMask, m[p], p);
+    const float fp = __shfl_sync(kFullMask, f, p);
+    const bool below = lane > p && mine;
+    const float fac = m[p] * inv;
+#pragma unroll
+    for (int j = p + 1; j < C; ++j) {
+      const float v = m[j] - fac * __shfl_sync(kFullMask, m[j], p);
+      m[j] = below ? v : m[j];
+    }
+    const float fv = f - fac * fp;
+    f = below ? fv : f;
+  }
+  float diag = m[0];
+#pragma unroll
+  for (int j = 1; j < C; ++j) diag = lane == j ? m[j] : diag;
+#pragma unroll
+  for (int i = C - 1; i >= 0; --i) {
+    if (i < r) {
+      const bool me = lane == i;
+      const float di = __shfl_sync(kFullMask, div_rn(me ? f : 0.f, me ? diag : 1.f), i);
+      if (me) dks[i] = di;
+      const float v = f - m[i] * di;
+      f = lane < i ? v : f;
+    }
+  }
+}
+
+// The same for any r, by the whole block: the rows below the pivot over
+// the warps, four at a time (their loads before their stores), and the
+// columns over the lanes, one barrier a pivot; then the back substitution
+// by columns in warp 0, lane i % 32 dividing row i's remainder (rows below
+// 32 in a register, the others in M's column r).
+__device__ __forceinline__ void wide_solve_block(float* __restrict__ M, int ms, int r,
+                                                 float* __restrict__ dks) {
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int p = 0; p < r; ++p) {
+    const float inv = 1.f / M[p * ms + p];
+    const float* prow = M + p * ms;
+    for (int i = p + 1 + w; i < r; i += 4 * nw) {
+      int row[4];
+      float f[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        row[u] = i + u * nw < r ? i + u * nw : -1;
+        f[u] = row[u] >= 0 ? M[row[u] * ms + p] * inv : 0.f;
+      }
+      for (int j = p + 1 + lane; j <= r; j += 32) {
+        const float pj = prow[j];
+        float v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = row[u] >= 0 ? M[row[u] * ms + j] : 0.f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (row[u] >= 0) M[row[u] * ms + j] = v[u] - f[u] * pj;
+      }
+    }
+    __syncthreads();
+  }
+  if (w == 0) {
+    float f0 = lane < r ? M[lane * ms + r] : 0.f;
+    for (int i = r - 1; i >= 0; --i) {
+      const int owner = i & 31;
+      const bool me = lane == owner;
+      const float num = i < 32 ? f0 : M[i * ms + r];
+      const float di =
+          __shfl_sync(kFullMask, div_rn(me ? num : 0.f, me ? M[i * ms + i] : 1.f), owner);
+      if (me) dks[i] = di;
+      if (lane < i) f0 = f0 - M[lane * ms + i] * di;
+      for (int k2 = 32 + lane; k2 < i; k2 += 32)
+        M[k2 * ms + r] = M[k2 * ms + r] - M[k2 * ms + i] * di;
+    }
+  }
+}
+
+// Block (n, l) integrates draw n of problem l with nw warps. kStaged: the
+// operator is staged transposed in shared memory (column c of row i at
+// T[c rs + i], rs = r | 1, so that both the lanes' columns of a row and
+// the lanes' rows of a column fall in distinct banks); else it is copied
+// in that layout into `scratch`, the block's (d, rs) slice of device
+// memory, and the right-hand side reads the rows of Ohat itself.
+template <bool kStaged>
+__global__ void __launch_bounds__(kWideWarps * 32)
+cahbn_screen_wide_kernel(const float* __restrict__ Ohat,      // (N, r, d)
+                         const float* __restrict__ q0,        // (L, r)
+                         const float* __restrict__ t_eval,    // (k,)
+                         const float* __restrict__ u_stages,  // (L, (k-1) substeps 3, nu)
+                         const float* __restrict__ shift,     // (L, r)
+                         const float* __restrict__ limits,    // (L, r)
+                         int r, int nu, int d, int N, int k, int substeps, int newton_iters,
+                         float* __restrict__ scratch,         // (L, N, d, rs), unless kStaged
+                         bool* __restrict__ stable,           // (L, N)
+                         float* __restrict__ partial) {       // (L, N, k, r) or null
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int n = blockIdx.x;
+  const int l = blockIdx.y;
+  const int rs = r | 1;
+  const int ms = (r + 1) | 1;
+  const WideSmem S(smem, r, d, WideSmem::chunks(d), nu, 7);
+  float* const xs = S.xe;  // the state the features are formed of, then 1, then u
+  float* const us = S.xe + r + 1;
+  float* const q = S.vec(0);
+  float* const k1 = S.vec(1);
+  float* const kk = S.vec(2);
+  float* const base = S.vec(3);
+  float* const dks = S.vec(4);
+  float* const mds = S.vec(5);
+  float* const shs = S.vec(6);
+  float* const M = S.tail;  // (r, ms): the Newton matrix, F as column r
+  float* const T = kStaged ? M + r * ms : scratch + (static_cast<size_t>(l) * N + n) * d * rs;
+  const float* op = Ohat + static_cast<size_t>(n) * r * d;
+  S.init(tid, nt, d, WideSmem::chunks(d), nu);
+  for (int e = tid; e < r * d; e += nt) {
+    const int i = e / d;
+    T[static_cast<size_t>(e - i * d) * rs + i] = __ldg(op + e);
+  }
+  // The right-hand side's view of row i, column c: rv[i si + c sc].
+  const float* rv = kStaged ? T : op;
+  const int si = kStaged ? 1 : d, sc = kStaged ? rs : 1;
+  const float* u_p = u_stages + static_cast<size_t>(l) * (k - 1) * substeps * 3 * nu;
+  float* part = partial == nullptr ? nullptr
+                                   : partial + (static_cast<size_t>(l) * N + n) * k * r;
+  for (int i = tid; i < r; i += nt) {
+    q[i] = q0[l * r + i];
+    shs[i] = shift[l * r + i];
+    mds[i] = fabsf(q[i] - shs[i]);
+    if (part != nullptr) part[i] = q[i];
+  }
+  __syncthreads();
+  FeatureCache<kWideFeatures> fc;
+  fc.load(S, tid, nt, d);
+
+  // Newton-solve kv = rhs(bv + hg kv, u) from the guess in kv; thread tid
+  // owns entries tid, tid + nt, ... of the r-vectors, as everywhere below.
+  auto newton = [&](const float* bv, float* kv, const float* u_row, float hg) {
+    for (int e = tid; e < nu; e += nt) us[e] = __ldg(u_row + e);
+    for (int it = 0; it < newton_iters; ++it) {
+      for (int i = tid; i < r; i += nt) xs[i] = bv[i] + hg * kv[i];
+      __syncthreads();
+      fc.form(S, tid, nt, d);
+      __syncthreads();
+      wide_rhs(rv, si, sc, S, r, d, [&](int i, float v) { M[i * ms + r] = kv[i] - v; });
+      wide_newton_matrix(T, rs, xs, us, hg, r, nu, M, ms);
+      __syncthreads();
+      if (r <= 32) {
+        if (tid < 32) {
+          if (r <= 8)
+            wide_solve_warp<8>(M, ms, r, dks);
+          else if (r <= 16)
+            wide_solve_warp<16>(M, ms, r, dks);
+          else
+            wide_solve_warp<32>(M, ms, r, dks);
+        }
+      } else {
+        wide_solve_block(M, ms, r, dks);
+      }
+      __syncthreads();
+      for (int i = tid; i < r; i += nt) kv[i] = kv[i] - dks[i];
+    }
+  };
+
+  for (int s = 1; s < k; ++s) {
+    const float h = (t_eval[s] - t_eval[s - 1]) / static_cast<float>(substeps);
+    const float hg = h * kGamma;
+    const float h1 = h * kOneMinusGamma;
+    for (int sub = 0; sub < substeps; ++sub) {
+      const float* u0 = u_p + static_cast<size_t>((s - 1) * substeps + sub) * 3 * nu;
+      // k1's guess rhs(q, u0); stage 1 Newton-solves k1, stage 2 k2 from k1.
+      for (int e = tid; e < nu; e += nt) us[e] = __ldg(u0 + e);
+      for (int i = tid; i < r; i += nt) xs[i] = q[i];
+      __syncthreads();
+      fc.form(S, tid, nt, d);
+      __syncthreads();
+      wide_rhs(rv, si, sc, S, r, d, [&](int i, float v) { k1[i] = v; });
+      __syncthreads();
+      newton(q, k1, u0 + nu, hg);
+      for (int i = tid; i < r; i += nt) {
+        base[i] = q[i] + h1 * k1[i];
+        kk[i] = k1[i];
+      }
+      newton(base, kk, u0 + 2 * nu, hg);
+      for (int i = tid; i < r; i += nt)
+        q[i] = clip_keep_nan(q[i] + h * (kOneMinusGamma * k1[i] + kGamma * kk[i]));
+    }
+    bool nan_now = false;
+    for (int i = tid; i < r; i += nt) {
+      mds[i] = max_keep_nan(mds[i], fabsf(q[i] - shs[i]));
+      if (part != nullptr) part[static_cast<size_t>(s) * r + i] = q[i];
+      nan_now = nan_now || isnan(q[i]);
+    }
+    // A NaN reaches every row of the next right-hand side and stays: the
+    // draw reports NaN from here on.
+    if (__syncthreads_or(nan_now)) {
+      const float nan = __int_as_float(0x7fc00000);
+      for (int i = tid; i < r; i += nt) {
+        mds[i] = nan;
+        if (part != nullptr)
+          for (int t = s + 1; t < k; ++t) part[static_cast<size_t>(t) * r + i] = nan;
+      }
+      break;
+    }
+  }
+
+  bool ok = true;
+  for (int i = tid; i < r; i += nt)
+    ok = ok && (mds[i] <= limits[l * r + i]) && isfinite(mds[i]);
+  ok = __syncthreads_and(ok);
+  if (tid == 0) stable[static_cast<size_t>(l) * N + n] = ok;
+}
+
+// The wide kernel's shared memory without the operator, and the floats
+// of device scratch a block needs when the operator does not fit beside
+// it (0 when it does).
+size_t wide_base_bytes(int r, int nu, int d) {
+  return WideSmem::bytes(r, d, WideSmem::chunks(d), nu, 7) + sizeof(float) * r * ((r + 1) | 1);
+}
+
+size_t wide_scratch_floats(int r, int nu) {
+  const int d = 1 + r + r * (r + 1) / 2 + nu + nu * r;
+  const size_t op = sizeof(float) * d * (r | 1);
+  return wide_base_bytes(r, nu, d) + op <= static_cast<size_t>(kMaxDynamicShared)
+             ? 0
+             : static_cast<size_t>(d) * (r | 1);
+}
+
+cudaError_t launch_wide(const float* Ohat, const float* q0, const float* t_eval,
+                        const float* u_stages, const float* shift, const float* limits, int L,
+                        int N, int r, int nu, int k, int substeps, int newton_iters,
+                        float* scratch, bool* stable, float* partial, cudaStream_t stream) {
+  const int d = 1 + r + r * (r + 1) / 2 + nu + nu * r;
+  const bool staged = wide_scratch_floats(r, nu) == 0;
+  if (!staged && scratch == nullptr) return cudaErrorInvalidValue;
+  const size_t bytes =
+      wide_base_bytes(r, nu, d) + (staged ? sizeof(float) * d * (r | 1) : 0);
+  int nw = (r + 3) / 4;
+  nw = nw < kWideWarps ? nw : kWideWarps;
+  auto kernel = staged ? cahbn_screen_wide_kernel<true> : cahbn_screen_wide_kernel<false>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (rc != cudaSuccess) return rc;
+  kernel<<<dim3(N, L), 32 * nw, bytes, stream>>>(Ohat, q0, t_eval, u_stages, shift, limits, r,
+                                                 nu, d, N, k, substeps, newton_iters, scratch,
+                                                 stable, partial);
+  return cudaGetLastError();
+}
+
+// The four families, as the wrapper names them (ops/cahbn_screen.py).
 constexpr int kTemplated = 0;  // r <= 8, nu <= 2: cahbn_screen_kernel<R, NU>
 constexpr int kCapacity = 1;   // r <= 16, nu <= 4: cahbn_screen_cap_kernel<12 or 16, 4>
 constexpr int kRuntime = 2;    // any r and nu: cahbn_screen_any_kernel
+constexpr int kWide = 3;       // any r and nu: cahbn_screen_wide_kernel
 constexpr int kTemplatedMaxR = 8;  // the reference's SMALL_SOLVE_MAX
 constexpr int kTemplatedMaxNu = 2;
 constexpr int kCapacityMaxR = 16;
@@ -856,25 +1255,34 @@ constexpr int kCapacityMaxNu = 4;
 
 }  // namespace
 
+// Floats of device scratch that each (problem, draw) block of the wide
+// kernel (family 3) needs at (r, nu): 0 where the draw's operator fits in
+// its shared memory, else d (r | 1). The wrapper passes L N times that as
+// `scratch` to gpboi_cahbn_screen.
+extern "C" long long gpboi_cahbn_wide_scratch(int r, int nu) {
+  return r < 1 || nu < 1 ? 0 : static_cast<long long>(wide_scratch_floats(r, nu));
+}
+
 // Screens L problems in one launch with the kernel of `family` (0: the
 // templated instances, r <= 8 with nu <= 2; 1: the capacity-templated
 // kernel, r <= 16 with nu <= 4, its capacity 12 or 16 chosen by r; 2: the
-// runtime-(r, nu) kernel, any r and nu). The wrapper chooses the family by
-// (r, nu) and can force one. `partial` is scratch of L * G * W * k * r
-// floats, W = warps_per_candidate(r, nd) for the templated instances and
-// W = nd for the others (the wrapper passes W, and it is checked); with
-// `snaps` (L, r, k) non-null the draw means' squared errors go to err_sq
-// (L, G), else partial and err_sq are not touched. Returns 0 on success,
-// a cudaError_t code if a launch failed, -1 for r < 1 or nu < 1 and -2
-// for a family that does not take (r, nu).
+// runtime-(r, nu) kernel, any r and nu; 3: the wide kernel, any r and
+// nu, with `scratch` as gpboi_cahbn_wide_scratch says, else null). The
+// wrapper chooses the family by (r, nu) and can force one. `partial` is
+// scratch of L * G * W * k * r floats, W = warps_per_candidate(r, nd) for
+// the templated instances and W = nd for the others (the wrapper passes
+// W, and it is checked); with `snaps` (L, r, k) non-null the draw means'
+// squared errors go to err_sq (L, G), else partial and err_sq are not
+// touched. Returns 0 on success, a cudaError_t code if a launch failed,
+// -1 for r < 1 or nu < 1 and -2 for a family that does not take (r, nu).
 extern "C" int gpboi_cahbn_screen(const float* Ohat, const float* q0, const float* t_eval,
                                   const float* u_stages, const float* shift,
                                   const float* limits, const float* snaps, int L, int N, int r,
                                   int nu, int nd, int W, int k, int substeps, int newton_iters,
                                   int family, bool* stable, float* partial, float* err_sq,
-                                  void* stream) {
+                                  float* scratch, void* stream) {
   if (r < 1 || nu < 1) return -1;
-  if ((family != kTemplated && family != kCapacity && family != kRuntime) ||
+  if (family < kTemplated || family > kWide ||
       (family == kTemplated && (r > kTemplatedMaxR || nu > kTemplatedMaxNu)) ||
       (family == kCapacity && (r > kCapacityMaxR || nu > kCapacityMaxNu)))
     return -2;
@@ -886,7 +1294,10 @@ extern "C" int gpboi_cahbn_screen(const float* Ohat, const float* q0, const floa
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = snaps != nullptr ? partial : nullptr;
   int rc;
-  if (family == kRuntime)
+  if (family == kWide)
+    rc = static_cast<int>(launch_wide(Ohat, q0, t_eval, u_stages, shift, limits, L, N, r, nu, k,
+                                      substeps, newton_iters, scratch, stable, part, s));
+  else if (family == kRuntime)
     rc = static_cast<int>(launch_any(Ohat, q0, t_eval, u_stages, shift, limits, L, N, r, nu, k,
                                      substeps, newton_iters, stable, part, s));
   else if (family == kCapacity)

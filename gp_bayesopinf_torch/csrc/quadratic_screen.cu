@@ -39,16 +39,17 @@
 // nvcc's multiply-add contraction makes err_sq differ from the CPU in the
 // last bits.
 //
-// Three kernel families, chosen by r in the wrapper (ops/ensemble_screen.py
-// ::screen_family) and passed to the C entry, which can be forced to any
-// family that takes r:
+// Four kernel families, passed to the C entry by code; the wrapper
+// (ops/ensemble_screen.py::screen_family) chooses the templated, capacity
+// or wide family by r and can force any family that takes r:
 //
-// * templated, r 1..12: quadratic_screen_kernel<R> above;
-// * capacity-templated, r <= 32: quadratic_screen_cap_kernel<RCAP>, RCAP
-//   16 (r 13..16) and 32 (r 17..32);
-// * runtime-r, any r: quadratic_screen_any_r_kernel, the path above r =
-//   32 and the yardstick the capacity kernel is held against bit for bit
-//   (family "runtime" forces it at any r).
+// * templated (0), r 1..12: quadratic_screen_kernel<R> above;
+// * capacity-templated (1), r <= 32: quadratic_screen_cap_kernel<RCAP>,
+//   RCAP 16 (r 13..16) and 32 (r 17..32);
+// * runtime-r (2), any r: quadratic_screen_any_r_kernel, the yardstick
+//   the capacity kernel is held against bit for bit and the wide kernel
+//   is timed against; only forcing (family "runtime") takes it;
+// * wide (3), any r: quadratic_screen_wide_kernel, the path above r = 32.
 //
 // Above r = 12 a row (d = 105 at r = 13, 153 at r = 16) no longer fits in
 // a lane's registers, so both other families give a draw a warp (the
@@ -76,6 +77,40 @@
 // quadratic blocks nest so that one branch skips all blocks from r on. The
 // arithmetic of each row, the per-draw partial sums and hence err_sq are
 // those of the runtime-r kernel to the bit.
+//
+// Above r = 32 a warp no longer holds a draw's operator (r d = 34,440
+// words at r 40, 137,280 at r 64), and a lane-per-row chain of d = 595 to
+// 2145 terms is what held the runtime-r kernel at 287x its bound at r 40 (one
+// warp an SM, its 138.7 KB operator in shared memory, lanes 0..7 running a
+// second row while the others wait; above r ~47 the operator read from
+// device memory d words apart a lane). What bounds the wide kernel is
+// still the chain of a stage, now cut short, and on-chip room for the
+// operator. Its design (the wide layout of screen_common.cuh): a draw
+// takes a block of nw = min(8, ceil(r / 5)) warps; the features [1, x,
+// ckron(x)] are formed once a stage in shared memory (each thread forms
+// every nt-th column, its first kWideFeatures pair codes in registers),
+// laid out so that a lane reads four chunks' features as one float4; warp
+// w owns rows w + nw m, and lane j the columns j + 32 t of each, so a
+// right-hand side's chain is ceil(d / 32) multiply-adds (27 at r 40) and a
+// 5-level shuffle tree, the five register rows' trees interleaved level
+// by level. Each lane keeps its columns of its first kWideRegRows rows,
+// up to kWideRegChunks chunks, in registers for the whole time loop (all
+// of r 40's operator; 140 registers of coefficients a lane); the rows past
+// those go to shared memory while it holds them (r 64's last 24 rows, 209
+// KB), and what is left, the chunks of the register rows past
+// kWideRegChunks, is read from device memory (L2) each stage, coalesced:
+// the warp reads 32 consecutive words of a row, never d words apart a
+// lane. Lane m keeps row slot m's state, stage sum and maximum deviation
+// in registers and runs its RK4 update (k1 + 2 k2 + 2 k3 + k4 in that
+// order); two barriers a stage (after the updates, after the features).
+// No atomics: the same bits every run; the split of a row changes its
+// order of summation from the other families' (the reference's XLA twin
+// sums by einsum in the backend's order), so err_sq agrees with them
+// within float32 roundoff. The waves: the operator takes most of the
+// register file, so one block an SM, and G nd =
+// 320 draws run in ceil(320 / 132) = 3 waves (the third of 56 draws); the
+// design leaves them, since a second draw on an SM would have to read its
+// operator from shared memory or L2 every stage.
 
 #include "screen_common.cuh"
 
@@ -431,10 +466,240 @@ cudaError_t launch_cap(const float* Ohat, const float* q0, const float* t_eval,
   return cudaGetLastError();
 }
 
-// The three families, as the wrapper names them (ops/ensemble_screen.py).
+// ---------------------------------------------------------------------------
+// The wide kernel (the wide layout of screen_common.cuh): any r, the path
+// above the capacity kernel's 32.
+
+constexpr int kWideWarps = 8;     // the most warps a draw's block takes
+constexpr int kWideRegRows = 5;   // row slots a warp keeps in registers
+constexpr int kWideRegChunks = 28;  // 32-column chunks of such a row in registers (4 k)
+constexpr int kWideFeatures = 4;    // features a thread forms from pair codes in registers
+
+// The rows past the register slots (i >= kWideRegRows nw): warp w takes
+// rows i0 + w, i0 + w + nw, ..., each read whole from `rows` (shared
+// memory, row stride ps, for the rows below i_staged_end) or from the
+// draw's operator in device memory, coalesced, and summed by chunks in
+// ascending order; lane 0 applies update(i, kk) with the warp's sum kk.
+template <class Update>
+__device__ __forceinline__ void wide_rows_streamed(const float* __restrict__ op,
+                                                   const float* rows, int ps, int i_staged_end,
+                                                   const float* fs, int r, int d, int nw, int Q,
+                                                   Update update) {
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int i0 = kWideRegRows * nw;
+  for (int i = i0 + w; i < r; i += nw) {
+    const bool staged = i < i_staged_end;
+    const float* row = staged ? rows + static_cast<size_t>(i - i0) * ps
+                              : op + static_cast<size_t>(i) * d;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int t = 0; t < Q; ++t) {
+      const int c = 32 * t + lane;
+      const float coef = staged ? row[c] : (c < d ? __ldg(row + c) : 0.f);
+      acc += coef * fs[feature_slot(c)];
+    }
+    const float kk = warp_sum(acc);
+    if (lane == 0) update(i, kk);
+  }
+}
+
+// One RK4 stage's update of a row's state from its new slope kk: acc sums
+// k1 + 2 k2 + 2 k3 + k4 in that order, as the reference does; returns the
+// state the next right-hand side reads.
+__device__ __forceinline__ float rk4_update(int stage, float kk, float hh, float h, float h6,
+                                            float& q, float& acc) {
+  if (stage == 0) {
+    acc = kk;
+    return clip_keep_nan(q + hh * kk);
+  }
+  if (stage == 1) {
+    acc = acc + 2.f * kk;
+    return clip_keep_nan(q + hh * kk);
+  }
+  if (stage == 2) {
+    acc = acc + 2.f * kk;
+    return clip_keep_nan(q + h * kk);
+  }
+  q = clip_keep_nan(q + h6 * (acc + kk));
+  return q;
+}
+
+// Block (n, l) integrates draw n of problem l with nw warps: warp w owns rows
+// i = w + nw m, lane j columns j + 32 t of each (the wide layout). The
+// state of row slot m < kWideRegRows lives in lane m's registers.
+__global__ void __launch_bounds__(kWideWarps * 32, 1)
+quadratic_screen_wide_kernel(const float* __restrict__ Ohat,    // (N, r, d)
+                             const float* __restrict__ q0,      // (L, r)
+                             const float* __restrict__ t_eval,  // (k,)
+                             const float* __restrict__ shift,   // (L, r)
+                             const float* __restrict__ limits,  // (L, r)
+                             int r, int d, int N, int k, int substeps, int staged_rows,
+                             bool* __restrict__ stable,         // (L, N)
+                             float* __restrict__ partial) {     // (L, N, k, r) or null
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int nw = nt >> 5;
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const int n = blockIdx.x;
+  const int l = blockIdx.y;
+  const int Q = (d + 31) / 32;
+  const int fq = WideSmem::chunks(d) > kWideRegChunks ? WideSmem::chunks(d) : kWideRegChunks;
+  const WideSmem S(smem, r, d, fq, 0, 3);
+  float* const xs = S.xe;        // the state the next right-hand side reads (then 1)
+  float* const qs = S.vec(0);    // the state of the rows past the register slots,
+  float* const accs = S.vec(1);  // their k1 + 2 k2 + 2 k3
+  float* const mds = S.vec(2);   // and their max over t of |q - shift|
+  const float* op = Ohat + static_cast<size_t>(n) * r * d;
+  const int i0 = kWideRegRows * nw;
+  float* const rows = S.tail;  // rows i0 .. i0 + staged_rows - 1, stride 32 Q
+  const int ps = 32 * Q;
+  S.init(tid, nt, d, fq, 0);
+  for (int e = tid; e < staged_rows * ps; e += nt) {
+    const int i = i0 + e / ps, c = e % ps;
+    rows[e] = c < d ? __ldg(op + static_cast<size_t>(i) * d + c) : 0.f;
+  }
+  float* part = partial == nullptr ? nullptr
+                                   : partial + (static_cast<size_t>(l) * N + n) * k * r;
+  for (int i = tid; i < r; i += nt) {
+    xs[i] = q0[l * r + i];
+    if (part != nullptr) part[i] = xs[i];
+    if (i >= i0) {
+      qs[i] = xs[i];
+      mds[i] = fabsf(xs[i] - shift[l * r + i]);
+    }
+  }
+  // Lane m's row slot m: its row, state, stage sum and max deviation.
+  const int my_i = w + nw * lane;
+  const bool mine = lane < kWideRegRows && my_i < r;
+  float q = 0.f, acc_q = 0.f, md = 0.f, sh = 0.f;
+  if (mine) {
+    q = q0[l * r + my_i];
+    sh = shift[l * r + my_i];
+    md = fabsf(q - sh);
+  }
+
+  __syncthreads();
+  FeatureCache<kWideFeatures> fc;
+  fc.load(S, tid, nt, d);
+
+  // This lane's columns of the rows of its warp's first kWideRegRows slots,
+  // on chip for the whole time loop (zeros past r and d).
+  float reg[kWideRegRows][kWideRegChunks];
+#pragma unroll
+  for (int m = 0; m < kWideRegRows; ++m) {
+    const int i = w + nw * m;
+#pragma unroll
+    for (int t = 0; t < kWideRegChunks; ++t) {
+      const int c = 32 * t + lane;
+      reg[m][t] = i < r && c < d ? __ldg(op + static_cast<size_t>(i) * d + c) : 0.f;
+    }
+  }
+
+  for (int s = 1; s < k; ++s) {
+    const float h = (t_eval[s] - t_eval[s - 1]) / static_cast<float>(substeps);
+    const float hh = 0.5f * h;
+    const float h6 = h / 6.0f;
+    for (int sub = 0; sub < substeps; ++sub) {
+      const bool output = sub == substeps - 1;
+#pragma unroll 1
+      for (int stage = 0; stage < 4; ++stage) {
+        __syncthreads();
+        fc.form(S, tid, nt, d);
+        __syncthreads();
+        // The register slots: chunk t of all kWideRegRows rows at once, in
+        // ascending t, every chunk (the features and coefficients past d
+        // are zeros), four chunks' features a load; then the chunks past
+        // the registers from device memory (L1 or L2), still ascending.
+        float acc[kWideRegRows];
+#pragma unroll
+        for (int m = 0; m < kWideRegRows; ++m) acc[m] = 0.f;
+#pragma unroll
+        for (int t4 = 0; t4 < kWideRegChunks / 4; ++t4) {
+          const float4 f4 = reinterpret_cast<const float4*>(S.fs)[32 * t4 + lane];
+          const float f[4] = {f4.x, f4.y, f4.z, f4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+#pragma unroll
+            for (int m = 0; m < kWideRegRows; ++m) acc[m] += reg[m][4 * t4 + u] * f[u];
+          }
+        }
+        for (int t = kWideRegChunks; t < Q; ++t) {
+          const int c = 32 * t + lane;
+          const float f = S.f(c);
+#pragma unroll
+          for (int m = 0; m < kWideRegRows; ++m) {
+            const int i = w + nw * m;
+            acc[m] += (i < r && c < d ? __ldg(op + static_cast<size_t>(i) * d + c) : 0.f) * f;
+          }
+        }
+        // Every lane gets every slot's sum; lane m keeps slot m's.
+        warp_sums<kWideRegRows>(acc);
+        float kk = 0.f;
+#pragma unroll
+        for (int m = 0; m < kWideRegRows; ++m) kk = lane == m ? acc[m] : kk;
+        if (mine) {
+          const float next = rk4_update(stage, kk, hh, h, h6, q, acc_q);
+          xs[my_i] = next;
+          if (stage == 3 && output) {
+            md = max_keep_nan(md, fabsf(next - sh));
+            if (part != nullptr) part[static_cast<size_t>(s) * r + my_i] = next;
+          }
+        }
+        wide_rows_streamed(op, rows, ps, i0 + staged_rows, S.fs, r, d, nw, Q,
+                           [&](int i, float kk_i) {
+                             const float next = rk4_update(stage, kk_i, hh, h, h6, qs[i], accs[i]);
+                             xs[i] = next;
+                             if (stage == 3 && output) {
+                               mds[i] = max_keep_nan(mds[i], fabsf(next - shift[l * r + i]));
+                               if (part != nullptr) part[static_cast<size_t>(s) * r + i] = next;
+                             }
+                           });
+      }
+    }
+  }
+
+  __syncthreads();
+  bool ok = !mine || ((md <= limits[l * r + my_i]) && isfinite(md));
+  for (int i = i0 + tid; i < r; i += nt)
+    ok = ok && (mds[i] <= limits[l * r + i]) && isfinite(mds[i]);
+  ok = __syncthreads_and(ok);
+  if (tid == 0) stable[static_cast<size_t>(l) * N + n] = ok;
+}
+
+cudaError_t launch_wide(const float* Ohat, const float* q0, const float* t_eval,
+                        const float* shift, const float* limits, int L, int N, int r, int k,
+                        int substeps, bool* stable, float* partial, cudaStream_t stream) {
+  const int d = 1 + r + r * (r + 1) / 2;
+  const int Q = (d + 31) / 32;
+  int nw = (r + kWideRegRows - 1) / kWideRegRows;
+  nw = nw < kWideWarps ? nw : kWideWarps;
+  // Rows past the register slots go to shared memory while it holds them.
+  const int fq = WideSmem::chunks(d) > kWideRegChunks ? WideSmem::chunks(d) : kWideRegChunks;
+  const size_t base = WideSmem::bytes(r, d, fq, 0, 3);
+  const int beyond = r > kWideRegRows * nw ? r - kWideRegRows * nw : 0;
+  const size_t row_bytes = static_cast<size_t>(32) * Q * sizeof(float);
+  int staged = base + row_bytes * beyond <= kMaxDynamicShared
+                   ? beyond
+                   : static_cast<int>((kMaxDynamicShared - base) / row_bytes);
+  staged = staged < 0 ? 0 : staged;
+  const size_t bytes = base + row_bytes * staged;
+  cudaError_t rc = cudaFuncSetAttribute(quadratic_screen_wide_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(bytes));
+  if (rc != cudaSuccess) return rc;
+  quadratic_screen_wide_kernel<<<dim3(N, L), 32 * nw, bytes, stream>>>(
+      Ohat, q0, t_eval, shift, limits, r, d, N, k, substeps, staged, stable, partial);
+  return cudaGetLastError();
+}
+
+// The four families, as the wrapper names them (ops/ensemble_screen.py).
 constexpr int kTemplated = 0;  // r <= kTemplatedMaxR: quadratic_screen_kernel<R>
 constexpr int kCapacity = 1;   // r <= kCapacityMaxR: quadratic_screen_cap_kernel<16 or 32>
 constexpr int kRuntime = 2;    // any r: quadratic_screen_any_r_kernel
+constexpr int kWide = 3;       // any r: quadratic_screen_wide_kernel
 constexpr int kTemplatedMaxR = 12;
 constexpr int kCapacityMaxR = 32;
 
@@ -443,8 +708,8 @@ int screen(int family, const float* Ohat, const float* q0, const float* t_eval,
            int nd, int W, int k, int substeps, bool* stable, float* partial, float* err_sq,
            cudaStream_t s) {
   if (r < 1) return -1;
-  if ((family != kTemplated && family != kCapacity && family != kRuntime) ||
-      (family == kTemplated && r > kTemplatedMaxR) || (family == kCapacity && r > kCapacityMaxR))
+  if (family < kTemplated || family > kWide || (family == kTemplated && r > kTemplatedMaxR) ||
+      (family == kCapacity && r > kCapacityMaxR))
     return -2;
   if (L < 1 || L > 65535 || N < 1 || nd < 1 || nd > 32 || N % nd != 0 || k < 1 ||
       substeps < 1 || W != (family == kTemplated ? warps_per_candidate(r, nd) : nd) ||
@@ -452,7 +717,9 @@ int screen(int family, const float* Ohat, const float* q0, const float* t_eval,
     return static_cast<int>(cudaErrorInvalidValue);
   float* part = snaps != nullptr ? partial : nullptr;
   cudaError_t rc = cudaSuccess;
-  if (family == kRuntime) {
+  if (family == kWide) {
+    rc = launch_wide(Ohat, q0, t_eval, shift, limits, L, N, r, k, substeps, stable, part, s);
+  } else if (family == kRuntime) {
     rc = launch_any_r(Ohat, q0, t_eval, shift, limits, L, N, r, k, substeps, stable, part, s);
   } else if (family == kCapacity) {
     rc = r <= 16 ? launch_cap<16>(Ohat, q0, t_eval, shift, limits, L, N, r, k, substeps, stable,
@@ -490,8 +757,9 @@ int screen(int family, const float* Ohat, const float* q0, const float* t_eval,
 
 // Screens L problems in one launch with the kernel of `family` (0: the
 // templated instances, r <= 12; 1: the capacity-templated kernel, r <= 32,
-// its capacity 16 or 32 chosen by r; 2: the runtime-r kernel, any r). The
-// wrapper chooses the family by r and can force one. `partial`, `snaps`
+// its capacity 16 or 32 chosen by r; 2: the runtime-r kernel, any r; 3:
+// the wide kernel, any r). The wrapper chooses the family by r and can
+// force one. `partial`, `snaps`
 // and `err_sq` as in cahbn_screen.cu's gpboi_cahbn_screen, W =
 // warps_per_candidate(r, nd) for the templated instances and W = nd for
 // the others. Returns 0 on success, a cudaError_t code if a launch

@@ -139,6 +139,134 @@ __device__ __forceinline__ void stage_capacity(const float* __restrict__ Ohat, s
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide layout (the wide kernels of both sources, above the capacity
+// kernels, any dimension): one draw per block of several warps. The
+// draw's feature vector f = [1, x, ckron(x)] (and, in B, [u, u ⊗ x]) is
+// formed once a stage in shared memory, each thread forming every nt-th
+// feature; each operator row is then one dot product with f, split over
+// the lanes of a warp by columns (lane j takes columns j, j + 32, ...,
+// "chunks" of 32) and summed by warp_sum's fixed shuffle tree, so a
+// row's chain is about d / 32 multiply-adds deep instead of d. No atomics:
+// the same bits every run.
+
+// The sums of v[0..K) over the warp, each by a butterfly of xor shuffles,
+// level by level over the K values so that their shuffles overlap; every
+// lane gets the same bits (each level adds the same two values in either
+// order).
+template <int K>
+__device__ __forceinline__ void warp_sums(float (&v)[K]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int m = 0; m < K; ++m) v[m] += __shfl_xor_sync(kFullMask, v[m], off);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  float one[1] = {v};
+  warp_sums<1>(one);
+  return one[0];
+}
+
+// Where feature c sits in a wide block's feature buffer: lane j's columns
+// j + 32 t of four consecutive chunks t = 4 q .. 4 q + 3 are adjacent, so
+// a lane reads them as one float4 (((const float4*)fs)[32 q + j]).
+__device__ __forceinline__ int feature_slot(int c) {
+  return ((c >> 7) << 7) + ((c & 31) << 2) + ((c >> 5) & 3);
+}
+
+// A wide block's shared memory, in order: the features (32 fq floats at
+// feature_slot(c), fq a multiple of 4 at least the chunks of a row; zeros
+// from d on), each feature's pair of factors (column c = xe[a] xe[b],
+// packed a | b << 16), the extended state xe = [x (r), 1, u (nu)],
+// `vectors` r-vectors, then the caller's tail. Every feature is a product
+// of two entries of xe: 1 = 1 1, x_a = x_a 1, x_a x_b (b <= a, the
+// reference's order of columns), u_e = u_e 1, u_e x_a; so forming them
+// takes no branch.
+struct WideSmem {
+  float* fs;
+  int* pairs;
+  float* xe;
+  float* vecs;
+  float* tail;
+  int r;
+
+  __host__ __device__ static int chunks(int d) { return ((d + 127) / 128) * 4; }
+
+  __device__ __forceinline__ WideSmem(float* smem, int r_, int d, int fq, int nu, int vectors)
+      : fs(smem),
+        pairs(reinterpret_cast<int*>(smem + 32 * fq)),
+        xe(smem + 32 * fq + d),
+        vecs(xe + r_ + 1 + nu),
+        tail(vecs + vectors * r_),
+        r(r_) {}
+
+  __host__ static size_t bytes(int r, int d, int fq, int nu, int vectors) {
+    return (static_cast<size_t>(32) * fq + d + r + 1 + nu + static_cast<size_t>(vectors) * r) *
+           sizeof(float);
+  }
+
+  __device__ __forceinline__ float* vec(int j) const { return vecs + j * r; }
+  __device__ __forceinline__ float f(int c) const { return fs[feature_slot(c)]; }
+
+  // Zero the features, set xe[r] = 1 and fill the pair table for d columns
+  // (nu inputs); the caller synchronizes the block before the first read.
+  __device__ __forceinline__ void init(int tid, int nt, int d, int fq, int nu) const {
+    for (int c = tid; c < 32 * fq; c += nt) fs[c] = 0.f;
+    if (tid == 0) xe[r] = 1.f;
+    const int kH = 1 + r, kB = kH + r * (r + 1) / 2, kN = kB + nu;
+    for (int c = tid; c < d; c += nt) {
+      int a = r, b = r;  // c = 0: 1 x 1
+      if (c >= 1 && c < kH) {
+        a = c - 1;
+      } else if (c >= kH && c < kB) {
+        const int z = c - kH;
+        a = static_cast<int>((sqrtf(8.f * z + 1.f) - 1.f) * 0.5f);
+        while (a * (a + 1) / 2 > z) --a;
+        while ((a + 1) * (a + 2) / 2 <= z) ++a;
+        b = z - a * (a + 1) / 2;
+      } else if (c >= kB && c < kN) {
+        a = r + 1 + (c - kB);
+      } else if (c >= kN) {
+        const int e = (c - kN) / r;
+        a = r + 1 + e;
+        b = c - kN - e * r;
+      }
+      pairs[c] = a | (b << 16);
+    }
+  }
+};
+
+// A thread's features, columns c = tid + nt u: the pair codes of the first
+// KF in registers (read from the table once, after init), the rest from
+// the table. form() writes f[0 .. d) from xe: two independent loads and a
+// product each.
+template <int KF>
+struct FeatureCache {
+  int code[KF];
+
+  __device__ __forceinline__ void load(const WideSmem& S, int tid, int nt, int d) {
+#pragma unroll
+    for (int u = 0; u < KF; ++u) {
+      const int c = tid + nt * u;
+      code[u] = c < d ? S.pairs[c] : -1;
+    }
+  }
+
+  __device__ __forceinline__ void form(const WideSmem& S, int tid, int nt, int d) const {
+#pragma unroll
+    for (int u = 0; u < KF; ++u) {
+      const int p = code[u];
+      if (p >= 0) S.fs[feature_slot(tid + nt * u)] = S.xe[p & 0xffff] * S.xe[p >> 16];
+    }
+    for (int c = tid + nt * KF; c < d; c += nt) {
+      const int p = S.pairs[c];
+      S.fs[feature_slot(c)] = S.xe[p & 0xffff] * S.xe[p >> 16];
+    }
+  }
+};
+
 // Where a thread sits in the screen grid.
 template <int R>
 struct Slot {

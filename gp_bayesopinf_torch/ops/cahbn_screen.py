@@ -23,12 +23,13 @@ Two implementations with one contract, both float32:
 
 * ``cahbn_ensemble_screen_cuda``: the hand-written Hopper kernel
   ``csrc/cahbn_screen.cu`` (see its header for the design), all L
-  problems in one launch, by one of three kernel families chosen by
-  (r, nu) (``screen_family``): the templated instances up to
+  problems in one launch, by one of four kernel families: the wrapper
+  chooses (``screen_family``) the templated instances up to
   ``TEMPLATED_MAX_STATE`` modes with ``TEMPLATED_MAX_INPUT`` inputs, the
   capacity-templated kernel up to ``CAPACITY_MAX_STATE`` modes (instances
-  ``CAPACITY_INSTANCES``) with ``CAPACITY_MAX_INPUT`` inputs, the
-  runtime-(r, nu) kernel beyond; ``family=`` forces one;
+  ``CAPACITY_INSTANCES``) with ``CAPACITY_MAX_INPUT`` inputs and the wide
+  kernel beyond; ``family=`` forces one, and only forcing takes the
+  runtime-(r, nu) kernel (``"runtime"``);
 * ``cahbn_ensemble_screen_torch``: the plain PyTorch version, batched
   (N, r) states with the XLA twin's algorithm, one problem after another.
 
@@ -63,7 +64,7 @@ TEMPLATED_MAX_STATE = 8
 TEMPLATED_MAX_INPUT = 2
 #: The capacities of the capacity-templated kernel (r and nu at most a
 #: capacity at run time, the smallest state instance that holds r); beyond
-#: either largest, the runtime-(r, nu) kernel screens.
+#: either largest, the wide kernel screens.
 CAPACITY_INSTANCES = (12, 16)
 CAPACITY_MAX_STATE = CAPACITY_INSTANCES[-1]
 CAPACITY_MAX_INPUT = 4
@@ -80,13 +81,14 @@ def screen_family(r: int, nu: int, family: Optional[str] = None) -> str:
     ``"templated"`` for r <= ``TEMPLATED_MAX_STATE`` with nu <=
     ``TEMPLATED_MAX_INPUT``, else ``"capacity"`` for r <=
     ``CAPACITY_MAX_STATE`` with nu <= ``CAPACITY_MAX_INPUT``, else
-    ``"runtime"``; ``family`` forces one, which must take (r, nu). Raises
-    ValueError otherwise."""
+    ``"wide"``; ``family`` forces one, which must take (r, nu)
+    (``"runtime"`` and ``"wide"`` take every (r, nu)). Raises ValueError
+    otherwise."""
     if r < 1 or nu < 1:
         raise ValueError(f"need r and nu >= 1, got r={r}, nu={nu}")
     fits = {"templated": r <= TEMPLATED_MAX_STATE and nu <= TEMPLATED_MAX_INPUT,
             "capacity": r <= CAPACITY_MAX_STATE and nu <= CAPACITY_MAX_INPUT,
-            "runtime": True}
+            "runtime": True, "wide": True}
     return pick_family(f"r={r}, nu={nu}", fits, family)
 
 
@@ -205,8 +207,10 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("cahbn_screen")
     fn = lib.gpboi_cahbn_screen
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
+    lib.gpboi_cahbn_wide_scratch.argtypes = [ctypes.c_int] * 2
+    lib.gpboi_cahbn_wide_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -221,10 +225,13 @@ def cahbn_ensemble_screen_cuda(
     Raises on anything the kernel does not take and on a failed launch.
 
     ``family`` forces a kernel family (``screen_family``), which must take
-    (r, nu): ``"runtime"`` takes the runtime-(r, nu) kernel at every
-    dimension, and ``"capacity"`` the capacity-templated one at every
-    dimension it holds, so that ``chip_smoke.py`` holds each against the
-    others."""
+    (r, nu): ``"runtime"`` takes the runtime-(r, nu) kernel and
+    ``"wide"`` the wide kernel at every dimension, and ``"capacity"`` the
+    capacity-templated one at every dimension it holds, so that
+    ``chip_smoke.py`` holds each against the others. The wide kernel
+    stages each draw's operator in shared memory where it fits; where it
+    does not, this wrapper allocates the device scratch its C entry asks
+    for (``gpboi_cahbn_wide_scratch``)."""
     global launches
     dev = Ohat.device
     if dev.type != "cuda":
@@ -265,6 +272,9 @@ def cahbn_ensemble_screen_cuda(
     err_sq = torch.zeros((n_prob, G), dtype=torch.float32, device=dev)
     partial = torch.empty(n_prob * G * W * k * r if track else 0, dtype=torch.float32, device=dev)
     lib = _library()
+    per_block = lib.gpboi_cahbn_wide_scratch(r, nu) if family == "wide" else 0
+    scratch = torch.empty(n_prob * N * per_block, dtype=torch.float32, device=dev) \
+        if per_block else None
     with torch.cuda.device(dev):
         rc = lib.gpboi_cahbn_screen(
             Ohat.data_ptr(), q0.data_ptr(), t_eval.data_ptr(), u_stages.data_ptr(),
@@ -272,6 +282,7 @@ def cahbn_ensemble_screen_cuda(
             n_prob, N, r, nu, nd, W, k, substeps, newton_iters, FAMILIES.index(family),
             stable.data_ptr(),
             partial.data_ptr() if track else None, err_sq.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

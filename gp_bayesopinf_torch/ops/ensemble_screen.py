@@ -21,12 +21,13 @@ contract; posteriors and final ensembles stay float64):
 
 * ``quadratic_ensemble_screen_cuda``: the hand-written Hopper kernel
   ``csrc/quadratic_screen.cu`` (see its header for the design), all L
-  problems in one launch, by one of three kernel families chosen by r
-  (``screen_family``): the templated instances up to
+  problems in one launch, by one of four kernel families: the wrapper
+  chooses (``screen_family``) the templated instances up to
   ``TEMPLATED_MAX_STATE`` modes, the capacity-templated kernel up to
-  ``CAPACITY_MAX_STATE`` (instances ``CAPACITY_INSTANCES``), the
-  runtime-r kernel above; ``family=`` forces one (``"runtime"`` is the
-  yardstick the others are held against on the card);
+  ``CAPACITY_MAX_STATE`` (instances ``CAPACITY_INSTANCES``) and the wide
+  kernel above; ``family=`` forces one, and only forcing takes the
+  runtime-r kernel (``"runtime"``, the yardstick the others are held
+  against on the card);
 * ``quadratic_ensemble_screen_torch``: the plain PyTorch version, a
   batched (N, r) RK4 with a feature concat and an einsum, one problem
   after another.
@@ -49,12 +50,15 @@ MAX_DRAWS_PER_CANDIDATE = 32  # the kernels' limit, as the reference's
 #: The largest r of kernel A's templated instances (the row in registers).
 TEMPLATED_MAX_STATE = 12
 #: The capacities of the capacity-templated kernel (r <= capacity at run
-#: time, the smallest instance that holds r); above the largest, the
-#: runtime-r kernel screens.
+#: time, the smallest instance that holds r); above the largest, the wide
+#: kernel screens.
 CAPACITY_INSTANCES = (16, 32)
 CAPACITY_MAX_STATE = CAPACITY_INSTANCES[-1]
 #: The kernel families of both screens, by the code their C entries take.
-FAMILIES = ("templated", "capacity", "runtime")
+FAMILIES = ("templated", "capacity", "runtime", "wide")
+#: The families the wrappers choose by themselves, in order of preference;
+#: the runtime kernels run only when forced.
+CHOSEN = ("templated", "capacity", "wide")
 
 #: Kernel launches made by ``quadratic_ensemble_screen_cuda`` in this
 #: process. Callers may reset it to 0 to count the launches of one run.
@@ -64,11 +68,11 @@ family_launches = dict.fromkeys(FAMILIES, 0)
 
 
 def warps_per_candidate(r: int, nd: int, templated: bool = True) -> int:
-    """Warps that a candidate's nd draws take in the kernels' layouts
-    (``csrc/screen_common.cuh``). The templated instances give each draw
-    the power of two >= r lanes, one per operator row, several draws to a
-    warp; the capacity-templated and runtime-dimension kernels give each
-    draw a warp of its own, so the count is nd."""
+    """Per-draw sums of a candidate in the kernels' layouts
+    (``csrc/screen_common.cuh``): warps for the templated instances, which
+    give each draw the power of two >= r lanes, one per operator row,
+    several draws to a warp; nd for the other families, which give each
+    draw a warp (capacity and runtime) or a block (wide) of its own."""
     if not templated:
         return nd
     lanes = 1 << (r - 1).bit_length()
@@ -76,11 +80,11 @@ def warps_per_candidate(r: int, nd: int, templated: bool = True) -> int:
 
 
 def pick_family(dims: str, fits: Dict[str, bool], family: Optional[str]) -> str:
-    """The first family of ``FAMILIES`` whose dimensions fit (``fits``
-    maps each to whether it takes ``dims``), or ``family`` when given,
-    which must fit. Raises ValueError otherwise."""
+    """The first family of ``CHOSEN`` whose dimensions fit (``fits``
+    maps each of ``FAMILIES`` to whether it takes ``dims``), or ``family``
+    when given, which must fit. Raises ValueError otherwise."""
     if family is None:
-        return next(f for f in FAMILIES if fits[f])
+        return next(f for f in CHOSEN if fits[f])
     if family not in FAMILIES:
         raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
     if not fits[family]:
@@ -91,12 +95,13 @@ def pick_family(dims: str, fits: Dict[str, bool], family: Optional[str]) -> str:
 def screen_family(r: int, family: Optional[str] = None) -> str:
     """The kernel family that screens state dimension r: ``"templated"``
     up to ``TEMPLATED_MAX_STATE``, ``"capacity"`` up to
-    ``CAPACITY_MAX_STATE``, ``"runtime"`` above; ``family`` forces one,
-    which must take r. Raises ValueError otherwise."""
+    ``CAPACITY_MAX_STATE``, ``"wide"`` above; ``family`` forces one,
+    which must take r (``"runtime"`` and ``"wide"`` take every r). Raises
+    ValueError otherwise."""
     if r < 1:
         raise ValueError(f"need r >= 1, got {r}")
     fits = {"templated": r <= TEMPLATED_MAX_STATE, "capacity": r <= CAPACITY_MAX_STATE,
-            "runtime": True}
+            "runtime": True, "wide": True}
     return pick_family(f"r={r}", fits, family)
 
 
@@ -226,9 +231,10 @@ def quadratic_ensemble_screen_cuda(
     Raises on anything the kernel does not take and on a failed launch.
 
     ``family`` forces a kernel family (``screen_family``), which must take
-    r: ``"runtime"`` takes the runtime-r kernel at every r, and
-    ``"capacity"`` the capacity-templated one at every r it holds, so
-    that ``chip_smoke.py`` holds each against the others."""
+    r: ``"runtime"`` takes the runtime-r kernel and ``"wide"`` the wide
+    kernel at every r, and ``"capacity"`` the capacity-templated one at
+    every r it holds, so that ``chip_smoke.py`` holds each against the
+    others."""
     global launches
     dev = Ohat.device
     if dev.type != "cuda":

@@ -1,11 +1,18 @@
 """The screen kernels of this checkout against those of another checkout
 (for example the parent commit unpacked with ``git archive`` into a
-directory that ``.gitignore`` lists), timed on one CUDA card in turns.
+directory that ``.gitignore`` lists), or two kernel families of this
+checkout against each other, timed on one CUDA card in turns.
 
     python3 scripts/torch_screen_ab.py --other build/parent [--reps 5]
+    python3 scripts/torch_screen_ab.py --family wide --other-family runtime
 
-Each version runs in a process of its own, since the two packages share a
-name, in the order other, this, this, other. Each process builds its two
+Each side runs in a process of its own, since two checkouts' packages
+share a name, in the order other, this, this, other. Without ``--other``
+both sides are this checkout. ``--family`` (this side) and
+``--other-family`` force a kernel family (``"wide"``, ``"runtime"``, ...)
+on the cases above the templated instances, where the side's wrappers
+take ``family=`` and the family takes the shape; without them each
+wrapper chooses. Each process builds its two
 kernels and times them with CUDA events at the shapes of PERF.md's
 kernel table: kernel A (RK4 "cAH") at the Euler ex1a screen shapes (G =
 16, nd = 20, r = 6, 8 substeps, k = 400 with the error term), kernel B
@@ -17,10 +24,13 @@ dimensions above the templated instances, where the version's wrappers
 take them: kernel A at r = 13, 16 and 24 (k = 400 with the error term),
 kernel B at (r, nu) = (9, 2), (12, 2) and (6, 3) (k = 80 with the error
 term) and at (9, 2) with k = 500, no error term and L = 5 (the heat
-search's other grid). Inputs are made from a seed; every draw decays, so
-no draw takes a kernel's slow paths.
-Each process prints one JSON line: the card, the version and the
-milliseconds per call of each case.
+search's other grid); and above the capacity kernels, where the wide
+kernels take the wrappers' choice: kernel A at r = 40 and 64 (k = 400),
+kernel B at (20, 2) and (6, 5) (k = 80), each with the error term.
+Inputs are made from a seed; every draw decays, so no draw takes a
+kernel's slow paths.
+Each process prints one JSON line: the card, the version, the family it
+forced and the milliseconds per call of each case.
 """
 
 import argparse
@@ -40,7 +50,7 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def worker(root: str, reps: int) -> None:
+def worker(root: str, reps: int, family=None) -> None:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -113,25 +123,28 @@ def worker(root: str, reps: int) -> None:
                     *args, nd=nd, substeps=4, newton_iters=6, track_error=track))
             except ValueError:
                 pass
-    # Above the templated instances (a version without them raises).
-    for r in (13, 16, 24):
+    forced = {} if family is None else {"family": family}
+    # Above the templated instances (a version without them raises, and one
+    # without ``family=`` or a family that does not take the shape too).
+    for r in (13, 16, 24, 40, 64):
         d = 1 + r + r * (r + 1) // 2
         args = (operators(r, d, G * nd), t(0.5 * rng.standard_normal(r)), tA, t(np.zeros(r)),
                 t(np.full(r, 10.0)), t(0.2 * rng.standard_normal((r, 400))))
         try:
-            times[f"A r={r} k=400"] = ms(
-                lambda: es.quadratic_ensemble_screen_cuda(*args, nd=nd, substeps=8))
-        except ValueError:
+            times[f"A r={r} k=400"] = ms(lambda: es.quadratic_ensemble_screen_cuda(
+                *args, nd=nd, substeps=8, **forced))
+        except (ValueError, TypeError):
             pass
     for r, nu, k, t_max, L in ((9, 2, 80, 1.0, 0), (12, 2, 80, 1.0, 0), (6, 3, 80, 1.0, 0),
-                               (9, 2, 500, 2.0, 5)):
+                               (9, 2, 500, 2.0, 5), (20, 2, 80, 1.0, 0),
+                               (6, 5, 80, 1.0, 0)):
         t64 = torch.linspace(0.0, t_max, k, dtype=torch.float64, device=dev)
         ts = cs.input_stage_times(t64, 4)
 
         def inputs():
-            a, b, c = rng.uniform(-2.0, 2.0, 3)
-            return t(torch.stack([a * torch.sin(2 * np.pi * ts), b * torch.sin(4 * np.pi * ts),
-                                  c * torch.sin(6 * np.pi * ts)][:nu], -1))
+            amp = rng.uniform(-2.0, 2.0, max(3, nu))
+            return t(torch.stack([amp[c] * torch.sin(2 * np.pi * (c + 1) * ts)
+                                  for c in range(nu)], -1))
 
         track = k == 80
         d = 1 + r + r * (r + 1) // 2 + nu + nu * r
@@ -141,25 +154,33 @@ def worker(root: str, reps: int) -> None:
                 per_problem(L, lambda: t(0.2 * rng.standard_normal((r, k)))) if track else None)
         try:
             times[f"B r={r} nu={nu} k={k} L={L or 1}"] = ms(lambda: cs.cahbn_ensemble_screen_cuda(
-                *args, nd=nd, substeps=4, newton_iters=6, track_error=track))
-        except ValueError:
+                *args, nd=nd, substeps=4, newton_iters=6, track_error=track, **forced))
+        except (ValueError, TypeError):
             pass
-    print(json.dumps({"card": card(), "version": root, "ms": times}), flush=True)
+    print(json.dumps({"card": card(), "version": root, "family": family, "ms": times}),
+          flush=True)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--other", help="root of the checkout to compare with")
+    parser.add_argument("--other", help="root of the checkout to compare with (default: this)")
+    parser.add_argument("--family", help="kernel family this side forces above the templated "
+                                         "instances (default: the wrappers' choice)")
+    parser.add_argument("--other-family", help="the family the other side forces")
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
-        worker(args.worker, args.reps)
+        worker(args.worker, args.reps, args.family)
         return 0
-    other = os.path.abspath(args.other)
-    for root in (other, REPO, REPO, other):
+    if args.other is None and args.family == args.other_family:
+        parser.error("give --other, or two different families")
+    other = (os.path.abspath(args.other) if args.other else REPO, args.other_family)
+    this = (REPO, args.family)
+    for root, family in (other, this, this, other):
         subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
-                        "--reps", str(args.reps)], check=True)
+                        "--reps", str(args.reps)] + (["--family", family] if family else []),
+                       check=True)
     return 0
 
 

@@ -40,7 +40,7 @@ def _case(r, G, nd, k, device):
                                     (24, 2, 7), (33, 2, 7)])
 def test_kernel_matches_plain(cuda, r, G, nd):
     """Templated instances (r <= 12), the capacity-templated kernel (r =
-    13, 16, 24) and the runtime-r kernel (r = 33)."""
+    13, 16, 24) and the wide kernel (r = 33)."""
     args = _case(r, G, nd, 40, cuda)
     before = es.launches
     s_k, e_k = es.quadratic_ensemble_screen(*args, nd=nd, substeps=4)
@@ -227,7 +227,8 @@ def _cahbn_case(r, nu, G, nd, k, substeps, device):
     t = torch.linspace(0, 1.5, k, dtype=torch.float64)
     ts = cs.input_stage_times(t, substeps)
     u = torch.stack([torch.sin(2 * np.pi * ts), torch.cos(4 * np.pi * ts),
-                     torch.sin(6 * np.pi * ts)][:nu], dim=-1)
+                     torch.sin(6 * np.pi * ts)][:nu]
+                    + [torch.cos(2 * np.pi * c * ts) for c in range(1, nu - 2)], dim=-1)
     arrays = (Ohat, 0.3 * rng.standard_normal(r), t, np.zeros(r), np.full(r, 8.0), u,
               rng.standard_normal((r, k)))
     return [torch.as_tensor(a, device=device) for a in arrays]
@@ -235,10 +236,10 @@ def _cahbn_case(r, nu, G, nd, k, substeps, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("r,nu,G,nd", [(5, 2, 4, 20), (3, 2, 5, 7), (8, 1, 3, 32), (9, 2, 3, 20),
-                                       (10, 2, 2, 7), (6, 3, 3, 20), (13, 4, 2, 7), (17, 1, 2, 7)])
+                                       (10, 2, 3, 7), (6, 3, 3, 20), (13, 4, 3, 7), (17, 1, 3, 7)])
 def test_cahbn_kernel_matches_plain(cuda, r, nu, G, nd):
     """Templated instances (r <= 8, nu <= 2), the capacity-templated kernel
-    (r <= 16, nu <= 4) and the runtime-(r, nu) kernel (r = 17)."""
+    (r <= 16, nu <= 4) and the wide kernel (r = 17)."""
     args = _cahbn_case(r, nu, G, nd, 30, 2, cuda)
     before = cs.launches
     s_k, e_k = cs.cahbn_ensemble_screen(*args, nd=nd, substeps=2)
@@ -288,7 +289,7 @@ def test_batched_kernel_matches_plain(cuda, r, G, nd, L):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("r,nu,G,nd,L", [(5, 2, 4, 20, 5), (3, 2, 5, 7, 2), (8, 1, 3, 32, 2),
-                                         (9, 2, 2, 7, 3)])
+                                         (9, 2, 3, 7, 3)])
 def test_batched_cahbn_kernel_matches_plain(cuda, r, nu, G, nd, L):
     args = _batched(_cahbn_case(r, nu, G, nd, 30, 2, cuda), L, (1, 3, 4, 5, 6), r)
     before = cs.launches
@@ -359,3 +360,83 @@ def test_forced_family_refusals(cuda):
     args = [a.float() for a in _cahbn_case(3, 3, 2, 4, 10, 2, cuda)]
     with pytest.raises(ValueError, match="templated kernel does not take r=3, nu=3"):
         cs.cahbn_ensemble_screen_cuda(*args, nd=4, substeps=2, family="templated")
+
+
+def _wide_case(r, G, nd, k, device, nu=None):
+    """Inputs for the wide kernels (A, or B with nu inputs): stiff stable
+    draws (-20 on A's diagonal; random couplings far smaller), the last
+    candidate diverging, draw 1 NaN, so candidates 1 .. G-2 are wholly
+    stable at any r."""
+    rng = np.random.default_rng(r + 100 * (nu or 0))
+    d = 1 + r + r * (r + 1) // 2 + (0 if nu is None else nu + nu * r)
+    Ohat = 0.3 * rng.standard_normal((G * nd, r, d))
+    Ohat[:, :, 1 : 1 + r] -= 20.0 * np.eye(r)
+    Ohat[:, :, 1 + r :] *= 0.1
+    Ohat[-nd:, :, 1 : 1 + r] += (420.0 if nu is None else 60.0) * np.eye(r)
+    Ohat[1, 0, 0] = np.nan
+    q0, snaps = 0.5 * rng.standard_normal(r), 0.2 * rng.standard_normal((r, k))
+    if nu is None:
+        arrays = (Ohat, q0, np.linspace(0, 0.06, k), np.zeros(r), np.full(r, 10.0), snaps)
+        return [torch.as_tensor(a, device=device) for a in arrays]
+    t = torch.linspace(0, 1.0, k, dtype=torch.float64)
+    ts = cs.input_stage_times(t, 2)
+    u = torch.stack([torch.sin(2 * np.pi * (e + 1) * ts) for e in range(nu)], dim=-1)
+    arrays = (Ohat, q0, t, np.zeros(r), np.full(r, 10.0), u, snaps)
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,G,nd,L", [(33, 3, 20, 1), (40, 3, 7, 2), (64, 3, 5, 1)])
+def test_wide_kernel_matches_plain_and_runtime(cuda, r, G, nd, L):
+    """Above the capacity kernel the wrapper takes the wide kernel by
+    itself (r = 33; 40 with its operator in registers, two problems; 64
+    with rows in shared and device memory): flags identical to the plain
+    version's and to the runtime kernel's forced on the same inputs,
+    err_sq within rtol 1e-3 of the plain version's; the runtime family
+    launches only when forced."""
+    args = [a.float().contiguous() for a in _wide_case(r, G, nd, 40, cuda)]
+    if L > 1:
+        args = [a.float().contiguous() for a in _batched(args, L, (1, 3, 4, 5), r)]
+    before = dict(es.family_launches)
+    s_w, e_w = es.quadratic_ensemble_screen(*args, nd=nd, substeps=4)
+    torch.cuda.synchronize()
+    assert es.family_launches["wide"] == before["wide"] + 1
+    assert es.family_launches["runtime"] == before["runtime"]
+    s_p, e_p = es.quadratic_ensemble_screen_torch(*args, nd=nd, substeps=4)
+    assert torch.equal(s_w, s_p)
+    ok = s_p.reshape(s_p.shape[:-1] + (G, nd)).all(dim=-1)
+    assert bool(ok.any())
+    torch.testing.assert_close(e_w[ok], e_p[ok], rtol=1e-3, atol=0.0)
+    s_r, _ = es.quadratic_ensemble_screen_cuda(*args, nd=nd, substeps=4, family="runtime")
+    torch.cuda.synchronize()
+    assert es.family_launches["runtime"] == before["runtime"] + 1
+    assert torch.equal(s_w, s_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,nu,G,nd,L,k", [(17, 1, 3, 7, 1, 30), (20, 2, 3, 7, 2, 30),
+                                           (6, 5, 3, 20, 1, 30), (46, 2, 3, 5, 1, 6)])
+def test_wide_cahbn_kernel_matches_plain_and_runtime(cuda, r, nu, G, nd, L, k):
+    """Beyond r 16 or nu 4 the wrapper takes kernel B's wide kernel by
+    itself ((17, 1); (20, 2) with two problems; (6, 5); (46, 2), whose
+    operator does not fit in shared memory, so the wrapper allocates the
+    kernel's device scratch): flags identical to the plain version's and
+    to the runtime kernel's, err_sq within rtol 1e-3 of the plain
+    version's; the runtime family launches only when forced."""
+    args = [a.float().contiguous() for a in _wide_case(r, G, nd, k, cuda, nu=nu)]
+    if L > 1:
+        args = [a.float().contiguous() for a in _batched(args, L, (1, 3, 4, 5, 6), r)]
+    before = dict(cs.family_launches)
+    s_w, e_w = cs.cahbn_ensemble_screen(*args, nd=nd, substeps=2)
+    torch.cuda.synchronize()
+    assert cs.family_launches["wide"] == before["wide"] + 1
+    assert cs.family_launches["runtime"] == before["runtime"]
+    s_p, e_p = cs.cahbn_ensemble_screen_torch(*args, nd=nd, substeps=2)
+    assert torch.equal(s_w, s_p)
+    ok = s_p.reshape(s_p.shape[:-1] + (G, nd)).all(dim=-1)
+    assert bool(ok.any())
+    torch.testing.assert_close(e_w[ok], e_p[ok], rtol=1e-3, atol=0.0)
+    s_r, _ = cs.cahbn_ensemble_screen_cuda(*args, nd=nd, substeps=2, family="runtime")
+    torch.cuda.synchronize()
+    assert cs.family_launches["runtime"] == before["runtime"] + 1
+    assert torch.equal(s_w, s_r)

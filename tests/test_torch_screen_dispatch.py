@@ -3,10 +3,12 @@ candidate's draws take in each, and the wrappers' refusals, on the CPU.
 
 Kernel A (``ops/ensemble_screen.py``, ``csrc/quadratic_screen.cu``) and
 kernel B (``ops/cahbn_screen.py``, ``csrc/cahbn_screen.cu``) each have
-three families: the templated instances, the capacity-templated kernel
-and the runtime-dimension kernel. The wrapper picks one by dimension and
-passes its code to the C entry, which picks the capacity instance by r;
-both sides are read here, the C side from the sources. No JAX, no card.
+four families: the templated instances, the capacity-templated kernel,
+the runtime-dimension kernel and the wide kernel. The wrapper picks
+one of the templated, capacity and wide families by dimension (the
+runtime kernel only when forced) and passes its code to the C entry,
+which picks the capacity instance by r; both sides are read here, the C
+side from the sources. No JAX, no card.
 """
 
 import re
@@ -26,7 +28,7 @@ CSRC = Path(__file__).resolve().parents[1] / "gp_bayesopinf_torch" / "csrc"
     (1, "templated", None), (12, "templated", None),  # the templated instances
     (13, "capacity", 16), (16, "capacity", 16),  # the first capacity instance
     (17, "capacity", 32), (32, "capacity", 32),  # the second
-    (33, "runtime", None), (64, "runtime", None),
+    (33, "wide", None), (64, "wide", None),  # above the capacity kernel
 ])
 def test_kernel_a_family_by_r(r, family, capacity):
     assert es.screen_family(r) == family
@@ -38,7 +40,7 @@ def test_kernel_a_family_by_r(r, family, capacity):
     (1, 1, "templated", None), (8, 2, "templated", None),
     (9, 2, "capacity", 12), (8, 3, "capacity", 12),  # past the templated r, past its nu
     (12, 4, "capacity", 12), (13, 4, "capacity", 16), (16, 4, "capacity", 16),
-    (16, 5, "runtime", None), (17, 1, "runtime", None), (3, 5, "runtime", None),
+    (16, 5, "wide", None), (17, 1, "wide", None), (3, 5, "wide", None),  # beyond the capacity
 ])
 def test_kernel_b_family_by_r_and_nu(r, nu, family, capacity):
     assert cs.screen_family(r, nu) == family
@@ -50,9 +52,10 @@ def test_kernel_b_family_by_r_and_nu(r, nu, family, capacity):
                                                   (12, 7, 4), (5, 32, 8)])
 def test_warps_per_candidate_by_family(r, nd, templated_warps):
     """The templated instances pack 32 / (power of two >= r) draws into a
-    warp; the capacity and runtime kernels give each draw its own warp."""
+    warp; the capacity and runtime kernels give each draw its own warp, the
+    wide kernel its own block: nd per-draw sums in each."""
     assert es.warps_per_candidate(r, nd) == templated_warps
-    for family in ("capacity", "runtime"):
+    for family in ("capacity", "runtime", "wide"):
         assert es.warps_per_candidate(r, nd, templated=family == "templated") == nd
 
 
@@ -73,21 +76,35 @@ def test_family_refusals(call, match):
 
 
 def test_forced_families_that_fit():
+    """Forcing "runtime" still takes the runtime kernel at every dimension, and
+    "wide" takes every dimension too; no automatic choice is "runtime"."""
     assert es.screen_family(6, "capacity") == "capacity"
-    assert es.screen_family(6, "runtime") == "runtime"
-    assert es.screen_family(40, "runtime") == "runtime"
+    for r in (1, 6, 13, 32, 33, 40, 64, 100):
+        assert es.screen_family(r, "runtime") == "runtime"
+        assert es.screen_family(r, "wide") == "wide"
+        assert es.screen_family(r) != "runtime"
     assert cs.screen_family(5, 2, "capacity") == "capacity"
-    assert cs.screen_family(20, 6, "runtime") == "runtime"
+    for r, nu in ((1, 1), (5, 2), (9, 2), (16, 4), (16, 5), (17, 1), (20, 6), (48, 2)):
+        assert cs.screen_family(r, nu, "runtime") == "runtime"
+        assert cs.screen_family(r, nu, "wide") == "wide"
+        assert cs.screen_family(r, nu) != "runtime"
+    assert es.FAMILIES[:3] == ("templated", "capacity", "runtime")  # codes 0-2 unchanged
+    assert es.CHOSEN == ("templated", "capacity", "wide")
 
 
 def test_c_entries_agree_with_the_wrappers():
-    """The family codes, the limits and the capacity instances of both C
-    entries are those of the wrappers."""
+    """The family codes (the wide family's 3 beside 0-2), the limits and
+    the capacity instances of both C entries are those of the wrappers; the
+    entries refuse a code past the wide family's and take the wide family
+    at every dimension (no limit of their own)."""
     for src, mod in (("quadratic_screen.cu", es), ("cahbn_screen.cu", cs)):
         text = (CSRC / src).read_text()
         codes = {name: int(v) for name, v in
-                 re.findall(r"constexpr int k(Templated|Capacity|Runtime) = (\d+);", text)}
+                 re.findall(r"constexpr int k(Templated|Capacity|Runtime|Wide) = (\d+);", text)}
         assert codes == {f.capitalize(): i for i, f in enumerate(es.FAMILIES)}
+        assert codes["Wide"] == 3
+        assert "family < kTemplated || family > kWide" in re.sub(r"\s+", " ", text)
+        assert not re.search(r"family == kWide && ", text)
         limits = dict(re.findall(r"constexpr int k(\w+Max\w+) = (\d+);", text))
         assert int(limits["TemplatedMaxR"]) == mod.TEMPLATED_MAX_STATE
         assert int(limits["CapacityMaxR"]) == mod.CAPACITY_MAX_STATE

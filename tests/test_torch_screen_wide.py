@@ -1,6 +1,7 @@
 """Both ensemble screens above the state and input dimensions of their
 templated CUDA instances (kernel A above r = 12, kernel B above r = 8 or
-nu = 2), where the card takes the runtime-dimension kernels: the plain
+nu = 2), where the card takes the capacity-templated kernels and, above
+r = 32 (A) or r = 16 or nu = 4 (B), the wide kernels: the plain
 PyTorch versions, which the CPU runs and the kernels are held to on the
 card, against the JAX package's XLA twins on inputs made from a NumPy
 seed, and the regularization search of a 13-mode "cAH" ROM through the
