@@ -122,6 +122,20 @@ mesh. the multi-device layer (``gp_bayesopinf_torch.parallel``), after
 12. the checkpoint: ``scaled`` at its defaults but m' = 512 with a
     fresh ``--checkpoint-dir``, then again with it: the same result to
     the bit, and no data, POD or GP-fit stage in the second run.
+examples. the port's demos, studies and notebooks (``examples/torch_*``,
+    ``scripts/torch_*_study.py``) through their compute and report
+    functions: the SEIRD demo at ``--full`` (phase 7's gates, kernel A's
+    launches counted, its printed error equal to ``ensemble_error``'s);
+    the Euler demo's report on phase 5's run (its printed error equal to
+    the compressed error over the training span, computed on the card);
+    the extrapolation study's ``domain_errors`` of phase 5's run and one
+    ex2a run (50 samples, 1% noise, m' 400, r 6, 400 draws: lambda > 0, at
+    least 70% valid, finite errors, kernel A's launches counted); three
+    rungs of the stability ladder (the chosen lambda, 1e-2, 1e-1) on
+    phase 5's factorization; the notebooks' model cells on the card
+    (``SEIRD2.solve`` and ``noise``, ``CubicHeatBimodal.solve`` on a 41 x
+    41 grid) against their host twins at rtol 1e-10; figures only where
+    matplotlib and h5py are, said on a line of its own.
 
 The last two lines of standard output are a JSON summary of the kernels
 and a JSON status line.
@@ -174,14 +188,6 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 # cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def screen_case(G, nd, k, t_max, rng, track_error, r=6):
@@ -835,8 +841,15 @@ def run_counted(argv, kernel):
     """Run the CLI on ``argv`` with the launch counts set to 0 just before;
     returns (result, wall seconds, ``kernel``'s launches, objective
     evaluations of the regularization search)."""
-    from gp_bayesopinf_torch.bayes import regsearch
     from gp_bayesopinf_torch.pipeline import cli
+
+    return call_counted(lambda: cli.run(argv), kernel)
+
+
+def call_counted(fn, kernel):
+    """``fn()`` with the launch counts set to 0 just before, as
+    ``run_counted``."""
+    from gp_bayesopinf_torch.bayes import regsearch
 
     evaluations = 0
     make = regsearch._kernel_objective
@@ -855,7 +868,7 @@ def run_counted(argv, kernel):
     try:
         reset_launches()
         t0 = time.perf_counter()
-        res = cli.run(argv)
+        res = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()[kernel]
@@ -866,8 +879,9 @@ def run_counted(argv, kernel):
 
 
 def pipeline_phase():
-    """Phase 5; returns the kernel A launches of the run and its search's
-    inputs (``ex1a_search_inputs``) for phase ``mesh``."""
+    """Phase 5; returns the kernel A launches of the run, its search's
+    inputs (``ex1a_search_inputs``) for phase ``mesh`` and the result for
+    phase ``examples``."""
     from gp_bayesopinf_torch.pipeline import ensemble_error
 
     res, wall, launches, evals = run_counted(EX1A, "quadratic_ensemble_screen")
@@ -886,7 +900,7 @@ def pipeline_phase():
     assert bool(torch.isfinite(res.draws_compressed[res.valid]).all())
     assert bool(torch.isfinite(res.draws).all())
     assert err < 0.5, f"ensemble-mean error {err:.4f}"
-    return launches, ex1a_search_inputs(res)
+    return launches, ex1a_search_inputs(res), res
 
 
 def ex1a_search_inputs(res):
@@ -1578,11 +1592,167 @@ def mesh_phase(search, scaled_res):
     return sum(out["search"]["launches"] for out in pair)
 
 
+def load_script(rel):
+    """A script of the checkout (``examples/``, ``scripts/``) as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class ReplayUniforms:
+    """Stands in for a NumPy ``Generator``: hands the host noise twin the
+    uniforms the device drew."""
+
+    def __init__(self, u):
+        self.u = u
+
+    def uniform(self, size):
+        assert tuple(size) == self.u.shape
+        return self.u
+
+
+def examples_phase(ex1a_res):
+    """Phase ``examples``: the port's demos, studies and notebooks' model
+    cells on the card; returns kernel A's launches in its runs."""
+    from gp_bayesopinf_torch.models.heat import CubicHeatBimodal
+    from gp_bayesopinf_torch.models.seird import SEIRD2, _truncnorm_noise_np
+    from gp_bayesopinf_torch.pipeline.odes import ensemble_error
+
+    kernel = "quadratic_ensemble_screen"
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke" / "examples"
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        import matplotlib  # noqa: F401
+        import h5py  # noqa: F401  (the port's viz needs both)
+        figures = True
+    except ImportError:
+        figures = False
+    print("[examples] figures: " + (f"matplotlib and h5py present, drawn into {out}" if figures
+                                    else "matplotlib or h5py missing here, none drawn"),
+          flush=True)
+
+    # (a) The SEIRD demo at --full, with its crosscheck; phase 7's gates.
+    demo = load_script("examples/torch_seird_demo.py")
+    res, wall, seird_launches, evals = call_counted(
+        lambda: demo.compute(True, device="cuda", verbose=False), kernel)
+    n_valid, n_new, nd = int(res.valid.sum()), int(res.newic_valid.sum()), len(res.valid)
+    err, err_new = ensemble_error(res), ensemble_error(res, newic=True)
+    print(f"[examples] SEIRD demo --full: wall {wall:.2f} s, lambda {res.regularizer:.6e}, "
+          f"valid {n_valid}/{nd}, {n_new}/{nd} from the new initial conditions; errors {err:.4f}, "
+          f"new {err_new:.4f}; kernel A launches {seird_launches} in {evals} objective "
+          "evaluations; crosscheck " + ", ".join(
+              f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+              for k, v in res.crosscheck.items()),
+          flush=True)
+    assert seird_launches >= 4 and seird_launches == 2 * evals, (seird_launches, evals)
+    assert math.isfinite(res.regularizer) and res.regularizer > 0
+    assert n_valid >= 420 and n_new >= 420, (n_valid, n_new)
+    assert bool(torch.isfinite(res.draws[res.valid]).all())
+    assert bool(torch.isfinite(res.newic_draws[res.newic_valid]).all())
+    assert err < 0.5 and err_new < 0.5, (err, err_new)
+    np.testing.assert_allclose(res.bayesian_model.mean.tolist(), list(res.model.parameters),
+                               rtol=0.5)
+    printed = demo.report(res, str(out / "seird"), figures=figures)
+    assert math.isclose(printed, err, rel_tol=1e-12), (printed, err)
+    del res
+
+    # (b) The Euler demo's report on phase 5's result, its error against
+    # ensemble_error's formula restricted to the training span.
+    edemo = load_script("examples/torch_euler_demo.py")
+    printed = edemo.report(ex1a_res, str(out / "euler"), figures=figures)
+    inside = torch.as_tensor(ex1a_res.time_domain <= ex1a_res.t_estimation[-1], device="cuda")
+    truth = ex1a_res.basis.compress(ex1a_res.true_states)[:, inside]
+    valid = ex1a_res.valid
+    mean = ex1a_res.draws_compressed[valid].sum(dim=0)[:, inside] / max(int(valid.sum()), 1)
+    independent = float(torch.linalg.norm(mean - truth) / torch.linalg.norm(truth))
+    print(f"[examples] Euler demo on phase 5's run: training-domain error {printed!r} against "
+          f"{independent!r} computed on the card", flush=True)
+    assert math.isclose(printed, independent, rel_tol=1e-12), (printed, independent)
+
+    # (c) The extrapolation study: domain_errors of phase 5's run, and ex2a.
+    study = load_script("examples/torch_extrapolation_study.py")
+    errs = study.domain_errors(ex1a_res, study.T_TRAIN)
+    print("[examples] ex1a domain errors (all variables): " + ", ".join(
+        f"{d} {errs[(d, 'all')]:.4f}" for d in study.DOMAINS), flush=True)
+    assert all(math.isfinite(e) for e in errs.values())
+    res, wall, ex2a_launches, evals = call_counted(
+        lambda: study.run_workload("ex2a", device="cuda", verbose=False)[0], kernel)
+    n_valid, nd = int(res.valid.sum()), int(res.valid.shape[0])
+    errs = study.domain_errors(res, study.T_TRAIN)
+    print(f"[examples] ex2a (50 samples, 1% noise, m' 400, r 6, {nd} draws): wall {wall:.2f} s, "
+          f"lambda {res.regularizer:.6e}, valid {n_valid}/{nd}; errors (all variables) "
+          + ", ".join(f"{d} {errs[(d, 'all')]:.4f}" for d in study.DOMAINS)
+          + f"; kernel A launches {ex2a_launches} in {evals} objective evaluations", flush=True)
+    assert ex2a_launches >= 12 and ex2a_launches == 2 * evals, (ex2a_launches, evals)
+    assert math.isfinite(res.regularizer) and res.regularizer > 0
+    assert n_valid >= 0.7 * nd, f"only {n_valid}/{nd} draws valid"
+    assert all(math.isfinite(e) for e in errs.values()), errs
+    del res
+
+    # (d) Three rungs of the stability ladder on phase 5's factorization.
+    stab = load_script("scripts/torch_ex1a_stability_study.py")
+    ladder = stab.Ladder.from_result(ex1a_res)
+    t0 = time.perf_counter()
+    for j, lam in enumerate((ex1a_res.regularizer, 1e-2, 1e-1)):
+        n_final, n_screen, p20, rung_err = stab.rung(
+            ladder, lam, 600, generator=stab.rung_generator(j, "cuda"))
+        print(f"[examples] ladder rung lambda {lam:.6e}: final {n_final}/600, screen "
+              f"{n_screen}/600, P(20-draw screen) {p20:.3f}, error {rung_err:.4f}", flush=True)
+        assert 0 <= n_screen <= 600 and 0 < n_final <= 600 and math.isfinite(rung_err)
+    print(f"[examples] three rungs: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (e) The notebooks' model cells on the card against the host twins,
+    # float64: SEIRD2.solve and noise, CubicHeatBimodal.solve (the
+    # notebook's coarse grid).
+    seird = SEIRD2(parameters=tuple(
+        SEIRD2.convert_parameters((1.0, 0.25, 0.1, 0.1, 0.05, 0.05)).tolist()))
+    t = np.linspace(0, 200, 500)
+    q0 = [0.994, 0.005, 0.001, 0.0, 0.0]
+    t0 = time.perf_counter()
+    solution = seird.solve(torch.tensor(q0, dtype=torch.float64, device="cuda"),
+                           torch.as_tensor(t, device="cuda"), strict=True)
+    host = seird.solve_host(np.array(q0), t)
+    np.testing.assert_allclose(solution.cpu().numpy(), host, rtol=1e-10, atol=0)
+    noisy = seird.noise(solution, 0.1, generator=torch.Generator(device="cuda").manual_seed(0))
+    u = torch.rand(solution.shape, generator=torch.Generator(device="cuda").manual_seed(0),
+                   dtype=torch.float64, device="cuda")
+    assert torch.equal(noisy, seird.noise(solution, 0.1, u=u))
+    noisy_host = _truncnorm_noise_np(ReplayUniforms(u.cpu().numpy()), host, 0.1)
+    np.testing.assert_allclose(noisy.cpu().numpy(), noisy_host, rtol=1e-10, atol=0)
+    assert float(noisy.min()) >= 0.0 and float(noisy.max()) <= 1.0
+    seird_s = time.perf_counter() - t0
+    xc, tc = np.linspace(0, 1, 41), np.linspace(0, 2, 41)
+    heat = CubicHeatBimodal(xc, 0.0, 1.0, diffusion=5e-3, a=1.0, b=1.0)
+    qc0 = xc * (1 - xc) + xc
+    t0 = time.perf_counter()
+    on_card = heat.solve(torch.as_tensor(qc0, device="cuda"), tc)
+    torch.cuda.synchronize()
+    heat_s = time.perf_counter() - t0
+    heat_host = heat.solve_host(qc0, tc)
+    np.testing.assert_allclose(on_card.cpu().numpy(), heat_host, rtol=1e-10, atol=0)
+
+    def dev(a, b):
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+    print(f"[examples] notebooks on the card against the host, float64 (rtol 1e-10): SEIRD2.solve "
+          f"(5, 500) {dev(solution.cpu().numpy(), host):.1e}, noise {dev(noisy.cpu().numpy(), noisy_host):.1e} "
+          f"({seird_s:.2f} s); CubicHeatBimodal.solve (41, 41) {dev(on_card.cpu().numpy(), heat_host):.1e} "
+          f"({heat_s:.2f} s)", flush=True)
+    print(f"[examples] kernel A launches: SEIRD demo {seird_launches}, ex2a {ex2a_launches}",
+          flush=True)
+    return seird_launches + ex2a_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from gp_bayesopinf_torch.ops.build import build
+    from gp_bayesopinf_torch.utils.reporting import card_line
 
     print(card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1611,7 +1781,8 @@ def main() -> int:
     fields["cahbn_ensemble_screen"] = phase("kernel B", cahbn_phase)
     wide_b = phase("kernel B, capacity", capacity_b_phase)
     wide = phase("kernels A and B, wide and runtime", wide_phase_4c)
-    fields["quadratic_ensemble_screen"]["launches"], ex1a_search = phase("ex1a", pipeline_phase)
+    fields["quadratic_ensemble_screen"]["launches"], ex1a_search, ex1a_res = phase(
+        "ex1a", pipeline_phase)
     fields["cahbn_ensemble_screen"]["launches"] = phase("ex3", heat_phase)
     # Kernel A carries several main paths: its launches are those of all runs.
     seird_launches, seird_res = phase("seird", seird_phase)
@@ -1631,6 +1802,8 @@ def main() -> int:
     by_path["serve"] = phase("serve", serve_phase, seird_res, seird_launches)
     del seird_res
     phase("checkpoint", checkpoint_phase)
+    by_path["examples"] = phase("examples", examples_phase, ex1a_res)
+    del ex1a_res
     fields["quadratic_ensemble_screen"].update(
         launches=sum(by_path.values()), launches_by_path=by_path)
 

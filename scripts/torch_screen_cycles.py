@@ -141,6 +141,7 @@ def main() -> int:
 
     import chip_smoke
     from gp_bayesopinf_torch.ops.build import NVCC_FLAGS, _nvcc
+    from gp_bayesopinf_torch.utils.reporting import card_line
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--r", type=int, default=9)
@@ -193,7 +194,7 @@ def main() -> int:
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
                            capture_output=True, text=True).stdout.strip()
     print(json.dumps({
-        "card": chip_smoke.card_line(), "sm_clock": clock, "family": args.family, "r": r,
+        "card": card_line(), "sm_clock": clock, "family": args.family, "r": r,
         "nu": nu, "k": k, "newton_steps": steps, "cycles_per_newton_step": {
             "rhs_and_F": rhs / steps,
             "newton_row" if args.family == "capacity" else "newton_matrix": row / steps,

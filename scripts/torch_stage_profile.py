@@ -35,7 +35,6 @@ with the ensemble's valid share.
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 from unittest import mock
@@ -60,6 +59,7 @@ from gp_bayesopinf_torch.pipeline import (  # noqa: E402
     run_seird,
 )
 from gp_bayesopinf_torch.pipeline import odes, pdes_multi  # noqa: E402
+from gp_bayesopinf_torch.utils.reporting import card_line  # noqa: E402
 
 WORKLOADS = {
     "heat": (run_heat_multi, HeatMultiConfig, ((0.0, 1.0), 20, 0.05, 80, 5)),
@@ -68,14 +68,6 @@ WORKLOADS = {
     "ex1c": (run_euler, EulerConfig, ((0.0, 0.06), 200, 0.03, 3200, 6)),
     "scaled": (run_scaled, None, ()),  # its defaults; the seed is an argument
 }
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def stage_device_time(prof, stages):
@@ -127,7 +119,7 @@ def heat_ladder(seed, lams):
         )
         share = valid.double().mean(dim=1)
         print(json.dumps({
-            "card": card(), "workload": "heat", "seed": seed, "lambda": lam,
+            "card": card_line(), "workload": "heat", "seed": seed, "lambda": lam,
             "chosen": lam == res.regularizer, "spd": bool(fac.posterior_spd(
                 torch.tensor([lam], dtype=torch.float64, device="cuda"))[0]),
             "valid": valid.sum(dim=1).tolist(),
@@ -153,7 +145,7 @@ def run_once(name, seed, profile=False):
         res = runner(*args, **kw)
     torch.cuda.synchronize()
     line = {
-        "card": card(), "workload": name, "seed": seed, "profiled": profile,
+        "card": card_line(), "workload": name, "seed": seed, "profiled": profile,
         "wall_s": time.perf_counter() - t0, "stage_s": res.stage_seconds,
         "lambda": res.regularizer,
         "launches": {"quadratic_ensemble_screen": ensemble_screen.launches,
