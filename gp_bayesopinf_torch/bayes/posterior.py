@@ -7,7 +7,9 @@ lambda^2)) from the regression's spectral form. A draw is mean + F xi.
 The ensemble integrates all draws as one batch (a leading draw axis) in
 float64 and masks draws that leave the 5x-amplitude envelope or diverge.
 ``BayesianROM`` holds a posterior over ROM operators, ``BayesianODE`` one
-Gaussian (a single row) over the parameters of an ODE model.
+Gaussian (a single row) over the parameters of an ODE model. The
+ensembles' integration is the span ``posterior.integrate``
+(``utils.timing``).
 """
 
 import dataclasses
@@ -18,6 +20,7 @@ import torch
 from ..rom.model import GalerkinROM
 from ..solve.ivp import finite_mask, stability_mask
 from ..solve.lstsq import WeightedLSTSQ
+from ..utils.timing import span
 
 
 class OperatorPosterior(NamedTuple):
@@ -144,9 +147,10 @@ class BayesianROM:
         """
         batch = initial_conditions.shape[:-1]
         ohats = self.posterior.sample(ndraws, generator, xi, batch_shape=batch)
-        draws = self.model.predict(
-            ohats, initial_conditions[..., None, :], timepoints, input_func
-        )
+        with span("posterior.integrate"):
+            draws = self.model.predict(
+                ohats, initial_conditions[..., None, :], timepoints, input_func
+            )
         if stability_envelope is None:
             return draws, finite_mask(draws)
         shift, limits = (x[..., None, :] for x in stability_envelope)
@@ -231,7 +235,8 @@ class BayesianODE:
         Returns draws (ndraws, n, k) and valid (ndraws,) bool.
         """
         params = self.rvs(ndraws, generator, xi)
-        draws = self.model.solve(initial_conditions, timepoints, parameters=params)
+        with span("posterior.integrate"):
+            draws = self.model.solve(initial_conditions, timepoints, parameters=params)
         if stability_envelope is None:
             return draws, finite_mask(draws)
         return draws, stability_mask(draws, *stability_envelope)

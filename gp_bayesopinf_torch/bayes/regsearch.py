@@ -30,6 +30,12 @@ JAX package's ``_mesh_sharded_grid``): each rank screens one chunk of one
 device's, through the same objective, kernels included, and the errors
 are gathered. The refinement runs on every rank, and rank 0's choice is
 broadcast.
+
+The grid and the refinement are the spans ``search.grid`` and
+``search.refine`` (``utils.timing``). Each objective call counts
+``search_slots``, the candidates screened, padding included, and
+``search_candidates``, the distinct real ones: the grid points of the
+chunk that are not wrap padding, or 1 in the refinement.
 """
 
 import logging
@@ -44,6 +50,7 @@ from ..ops.ensemble_screen import quadratic_ensemble_screen
 from ..parallel.mesh import axis_index, axis_size, broadcast_from_first, gather_leading_axis
 from ..solve.ivp import stability_mask
 from ..solve.lstsq import WeightedLSTSQ
+from ..utils.timing import count, span
 
 MAXOPTVAL = 1e12  # objective ceiling of a rejected candidate
 DEFAULT_GRID_PDE = np.logspace(-16, 4, 81)
@@ -169,6 +176,11 @@ def _generic_objective(
     return objective
 
 
+def _count_call(slots: int, candidates: int) -> None:
+    count("search_slots", slots)
+    count("search_candidates", candidates)
+
+
 def auto_regularize(
     lstsq: WeightedLSTSQ,
     rom,
@@ -280,28 +292,30 @@ def auto_regularize(
         grid_errors = np.array([np.nan])
         bounds = [best_reg / 10.0, best_reg * 10.0]
     else:
-        if xi_grid is None:
-            xi_grid = torch.randn(
-                (G,) + shape, generator=generator, dtype=dtype, device=dev
-            )
-        grid_t = torch.as_tensor(grid, dtype=dtype, device=dev)
-        width = min(CHUNK, G)
-        ranks = 1 if mesh is None else axis_size(mesh, mesh_axis)
+        with span("search.grid"):
+            if xi_grid is None:
+                xi_grid = torch.randn(
+                    (G,) + shape, generator=generator, dtype=dtype, device=dev
+                )
+            grid_t = torch.as_tensor(grid, dtype=dtype, device=dev)
+            width = min(CHUNK, G)
+            ranks = 1 if mesh is None else axis_size(mesh, mesh_axis)
 
-        def chunk(s):  # one device's chunk from candidate s, wrap padded
-            idx = torch.as_tensor(np.arange(s, s + width) % G, device=dev)
-            return objective(grid_t[idx], xi_grid[idx])
+            def chunk(s):  # one device's chunk from candidate s, wrap padded
+                idx = torch.as_tensor(np.arange(s, s + width) % G, device=dev)
+                _count_call(width, max(0, min(width, G - s)))
+                return objective(grid_t[idx], xi_grid[idx])
 
-        parts = []
-        for s in range(0, G, width * ranks):
-            if mesh is None:
-                errs = chunk(s)
-            else:
-                mine = chunk(s + width * axis_index(mesh, mesh_axis))
-                errs = gather_leading_axis(torch.as_tensor(mine, device=dev)[None], mesh,
-                                           mesh_axis).flatten().cpu().numpy()
-            parts.append(errs[: min(width * ranks, G - s)])
-        grid_errors = np.concatenate(parts)
+            parts = []
+            for s in range(0, G, width * ranks):
+                if mesh is None:
+                    errs = chunk(s)
+                else:
+                    mine = chunk(s + width * axis_index(mesh, mesh_axis))
+                    errs = gather_leading_axis(torch.as_tensor(mine, device=dev)[None], mesh,
+                                               mesh_axis).flatten().cpu().numpy()
+                parts.append(errs[: min(width * ranks, G - s)])
+            grid_errors = np.concatenate(parts)
         if verbose:
             for lam, e in zip(grid, grid_errors):
                 tag = "UNSTABLE" if e >= MAXOPTVAL else f"{e:.2%} error"
@@ -325,24 +339,26 @@ def auto_regularize(
     # Bounded refinement in log10 lambda on ONE frozen set of draws: the
     # bracketing needs a deterministic objective. Each evaluation pads the
     # candidate to the grid's chunk width, so the screen keeps one shape.
-    if xi_refine is None:
-        xi_refine = torch.randn(shape, generator=generator, dtype=dtype, device=dev)
-    width = min(CHUNK, max(G, 1))
-    xi_single = xi_refine.expand((width,) + shape)
+    with span("search.refine"):
+        if xi_refine is None:
+            xi_refine = torch.randn(shape, generator=generator, dtype=dtype, device=dev)
+        width = min(CHUNK, max(G, 1))
+        xi_single = xi_refine.expand((width,) + shape)
 
-    def host_objective(logreg):
-        lams = torch.full((width,), 10.0**logreg, dtype=dtype, device=dev)
-        return float(objective(lams, xi_single)[0])
+        def host_objective(logreg):
+            lams = torch.full((width,), 10.0**logreg, dtype=dtype, device=dev)
+            _count_call(width, 1)
+            return float(objective(lams, xi_single)[0])
 
-    opt = scipy.optimize.minimize_scalar(
-        host_objective, method="bounded", bounds=np.log10(bounds)
-    )
-    x, refined = opt.x, bool(opt.success and opt.fun < MAXOPTVAL)
-    if mesh is not None:  # no rank may diverge on a last bit
-        x, ok = broadcast_from_first(
-            torch.tensor([x, refined], dtype=torch.float64, device=dev), mesh
-        ).tolist()
-        x, refined = np.float64(x), bool(ok)
+        opt = scipy.optimize.minimize_scalar(
+            host_objective, method="bounded", bounds=np.log10(bounds)
+        )
+        x, refined = opt.x, bool(opt.success and opt.fun < MAXOPTVAL)
+        if mesh is not None:  # no rank may diverge on a last bit
+            x, ok = broadcast_from_first(
+                torch.tensor([x, refined], dtype=torch.float64, device=dev), mesh
+            ).tolist()
+            x, refined = np.float64(x), bool(ok)
     if refined:
         chosen = float(10.0**x)
         logging.info(f"Best regularization via optimization: {chosen:.4e}")

@@ -13,6 +13,9 @@ Four phases, all on the caller's device in float64:
    subsample, with gradients and 3x3 Hessians from ``torch.func``.
 4. **Final re-rank** of the (winner, polished) pair on the full data.
 
+Each phase is a span (``utils.timing.span``): ``gp.screen`` (the starts
+drawn and the Adam descent), ``gp.rerank``, ``gp.polish``, ``gp.final``.
+
 Restart 0 starts from the kernel default (sigma2 = ell = chi = 1
 projected into the box); the others are log-uniform inside the box.
 """
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from .nlml import BoxTransform, nlml_in_box
+from ..utils.timing import span
 
 # optax.adam's defaults; the screen matches optax's update exactly.
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -164,25 +168,26 @@ def fit_gp_hyperparameters(
     """
     r, m = Y.shape
     T = t.expand(r, m) if t.ndim == 1 else t
-    if z0 is None:
-        if generator is None:
-            raise ValueError("pass a generator or explicit starts z0")
-        z0 = initial_z(box, r, n_restarts, generator)
+    if z0 is None and generator is None:
+        raise ValueError("pass a generator or explicit starts z0")
     rows = torch.arange(r, device=Y.device)
 
     # Phase 1: Adam screen of the whole (mode, restart) population.
-    idx = _strided(m, screen_points)
-    T_s, Y_s = (T, Y) if idx is None else (T[:, idx], Y[:, idx])
-    n_start = z0.shape[1]
-    z_scr, v_scr = _adam_screen(
-        z0,
-        T_s[:, None].expand(-1, n_start, -1),
-        Y_s[:, None].expand(-1, n_start, -1),
-        box, adam_steps, adam_lr,
-    )
+    with span("gp.screen"):
+        if z0 is None:
+            z0 = initial_z(box, r, n_restarts, generator)
+        idx = _strided(m, screen_points)
+        T_s, Y_s = (T, Y) if idx is None else (T[:, idx], Y[:, idx])
+        n_start = z0.shape[1]
+        z_scr, v_scr = _adam_screen(
+            z0,
+            T_s[:, None].expand(-1, n_start, -1),
+            Y_s[:, None].expand(-1, n_start, -1),
+            box, adam_steps, adam_lr,
+        )
 
     # Phase 2: full-data re-rank of every screened candidate.
-    with torch.no_grad():
+    with span("gp.rerank"), torch.no_grad():
         if idx is not None:
             v_scr = nlml_in_box(
                 z_scr, box,
@@ -192,12 +197,13 @@ def fit_gp_hyperparameters(
         z_best = z_scr[rows, torch.argmin(v_scr, dim=1)]
 
     # Phase 3: Newton polish of each mode's winner.
-    pidx = _strided(m, polish_points)
-    T_p, Y_p = (T, Y) if pidx is None else (T[:, pidx], Y[:, pidx])
-    z_pol, _ = _newton_polish(z_best, T_p, Y_p, box, polish_iters)
+    with span("gp.polish"):
+        pidx = _strided(m, polish_points)
+        T_p, Y_p = (T, Y) if pidx is None else (T[:, pidx], Y[:, pidx])
+        z_pol, _ = _newton_polish(z_best, T_p, Y_p, box, polish_iters)
 
     # Phase 4: full-data re-rank of the (winner, polished) pair.
-    with torch.no_grad():
+    with span("gp.final"), torch.no_grad():
         pair = torch.stack([z_best, z_pol], dim=1)  # (r, 2, 3)
         v_pair = nlml_in_box(
             pair, box, T[:, None].expand(-1, 2, -1), Y[:, None].expand(-1, 2, -1)

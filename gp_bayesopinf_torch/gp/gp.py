@@ -5,6 +5,10 @@
 one batched optimization and computes every estimation product in one
 batched call. ``GaussianProcess`` is a per-mode view holding the fitted
 hyperparameters and the estimation products.
+
+A fit is the span ``gp.fit``, its estimates and weight roots the child
+span ``gp.estimates`` (``utils.timing``; the fit's phases are
+``gp/fit.py``'s).
 """
 
 import dataclasses
@@ -19,6 +23,7 @@ from .lowrank import LowRankWeightRoot, batched_lowrank_gp_estimates
 from .nlml import BoxTransform
 from ..ops.rbf import rbf
 from ..utils.device import DeviceLike
+from ..utils.timing import span
 
 # From this many estimation points on "auto" switches to the factored
 # low-rank weight root (``gp.lowrank``): where the dense (m', m')
@@ -174,6 +179,7 @@ class GaussianProcess:
         return gp
 
 
+@span("gp.fit")
 def fit_gaussian_processes(
     time_domain_training: torch.Tensor,
     time_domain_sampled: torch.Tensor,
@@ -216,18 +222,19 @@ def fit_gaussian_processes(
         z0=z0,
     )
     T = time_domain_sampled.expand(Y.shape)
-    if weight_method == "lowrank":
-        return _fit_lowrank_gps(T, Y, t_est, fit, float(gp_regularizer))
-    est = batched_gp_estimates(
-        T, Y, t_est, fit.sigma2, fit.ell, fit.chi, gp_regularizer, method=weight_method
-    )
-    if not bool(est.ok.all()):
-        bad = torch.nonzero(~est.ok).flatten().tolist()
-        raise ValueError(
-            f"inverse covariance not positive definite for modes {bad}, "
-            "increase eta"
+    with span("gp.estimates"):
+        if weight_method == "lowrank":
+            return _fit_lowrank_gps(T, Y, t_est, fit, float(gp_regularizer))
+        est = batched_gp_estimates(
+            T, Y, t_est, fit.sigma2, fit.ell, fit.chi, gp_regularizer, method=weight_method
         )
-    hyper = torch.stack([fit.sigma2, fit.ell, fit.chi], dim=1).tolist()
+        if not bool(est.ok.all()):
+            bad = torch.nonzero(~est.ok).flatten().tolist()
+            raise ValueError(
+                f"inverse covariance not positive definite for modes {bad}, "
+                "increase eta"
+            )
+        hyper = torch.stack([fit.sigma2, fit.ell, fit.chi], dim=1).tolist()
     return [
         GaussianProcess(
             T[i], Y[i], *hyper[i],

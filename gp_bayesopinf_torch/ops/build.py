@@ -6,7 +6,8 @@ compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/gp_bayesopinf_torch/`` at the repository root, named by a hash of
 the source, the shared headers and the flags, and loaded with ``ctypes``.
 Nothing is built when the package is imported, and nothing here runs on
-a machine without CUDA unless a CUDA tensor reaches a kernel wrapper.
+a machine without CUDA unless a CUDA tensor reaches a kernel wrapper. A
+library's first load is the span ``ops.load_library`` (``utils.timing``).
 """
 
 import ctypes
@@ -18,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import NamedTuple
+
+from ..utils.timing import span
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gp_bayesopinf_torch"
@@ -83,4 +86,5 @@ def build(name: str) -> BuildInfo:
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
-    return ctypes.CDLL(str(build(name).path))
+    with span("ops.load_library"):
+        return ctypes.CDLL(str(build(name).path))

@@ -19,7 +19,8 @@ compares posterior means and standard deviations with
 ``np.allclose(rtol=1e-1)``: a wrong optimum of ``gp/fit.py`` shows there.
 
 Every device stage runs on the ``device`` argument, in float64 apart from
-the float32 screen.
+the float32 screen. A run is the span ``experiment``, each stage a child
+span of its name (``utils.timing``).
 """
 
 import dataclasses
@@ -35,6 +36,7 @@ from ..models import SEIRD2
 from ..solve import weighted_lstsq_fit
 from ..utils import ODE_STAGES, TimedBlock, host_rng, resolve_device, stage_generators
 from ..utils.device import DeviceLike
+from ..utils.timing import span
 
 
 @dataclasses.dataclass
@@ -99,6 +101,7 @@ def sample_trajectory(
     return np.stack(times), np.stack(rows)
 
 
+@span("experiment")
 def run_seird(
     training_span=(0.0, 90.0),
     num_samples: int = 90,

@@ -12,7 +12,9 @@
    differences of the samples and the truth model's own derivatives.
 
 Every stage runs on the ``device`` argument, in float64 apart from the
-float32 screen.
+float32 screen. A run is the span ``experiment``, each stage a child span
+of its name, the data stage's two solves ``data.truth`` and
+``data.samples`` (``utils.timing``).
 """
 
 import dataclasses
@@ -29,6 +31,7 @@ from ..rom import EulerScaledBasis, GalerkinROM
 from ..solve import weighted_lstsq_fit
 from ..utils import TimedBlock, resolve_device, stage_generators
 from ..utils.device import DeviceLike
+from ..utils.timing import span
 
 
 @dataclasses.dataclass
@@ -53,6 +56,7 @@ class EulerResult:
     ddtdata: Optional[Dict[str, np.ndarray]] = None  # see derivative_comparison_data
 
 
+@span("experiment")
 def run_euler(
     training_span=(0.0, 0.06),
     num_samples: int = 200,
@@ -96,14 +100,16 @@ def run_euler(
     q0_full = model.initial_conditions(config.init_params, device=dev)
 
     with stage("data", "generating training data"):
-        true_states = model.solve(q0_full, t_pred)
-        lo, hi = training_span
-        u = torch.rand(num_samples, generator=gens["sample"], dtype=f64, device=dev)
-        t_sampled = np.sort((lo + (hi - lo) * u).cpu().numpy())
-        t_sampled[0], t_sampled[-1] = training_span
-        snapshots = model.noise(
-            model.solve(q0_full, t_sampled), noiselevel, generator=gens["noise"]
-        )
+        with span("data.truth"):
+            true_states = model.solve(q0_full, t_pred)
+        with span("data.samples"):
+            lo, hi = training_span
+            u = torch.rand(num_samples, generator=gens["sample"], dtype=f64, device=dev)
+            t_sampled = np.sort((lo + (hi - lo) * u).cpu().numpy())
+            t_sampled[0], t_sampled[-1] = training_span
+            snapshots = model.noise(
+                model.solve(q0_full, t_sampled), noiselevel, generator=gens["noise"]
+            )
 
     with stage("pod", f"reducing states to {num_pod_modes} dimensions"):
         basis = EulerScaledBasis.fit(

@@ -16,7 +16,9 @@ come later).
    truth solve.
 
 Every stage but the host truth solves runs on the ``device`` argument,
-in float64 apart from the float32 screen.
+in float64 apart from the float32 screen. A run is the span
+``experiment``, each stage a child span of its name, the data stage's
+two solves ``data.truth`` and ``data.samples`` (``utils.timing``).
 """
 
 import dataclasses
@@ -33,6 +35,7 @@ from ..rom import GalerkinROM, QuadraticLiftedBasis
 from ..solve import weighted_lstsq_fit
 from ..utils import MULTI_STAGES, TimedBlock, resolve_device, stage_generators
 from ..utils.device import DeviceLike
+from ..utils.timing import span
 
 
 def input_func_factory(params):
@@ -80,6 +83,7 @@ class HeatMultiResult:
     stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
+@span("experiment")
 def run_heat_multi(
     training_span=(0.0, 1.0),
     num_samples: int = 20,
@@ -135,12 +139,14 @@ def run_heat_multi(
         t_sampled = np.sort((lo + (hi - lo) * u).cpu().numpy())
         t_sampled[0], t_sampled[-1] = training_span
         foms = [make_fom(p) for p in config.input_parameters]
-        true_states = tensor(solve_host_stacked(foms, q0_full, t_pred))
-        sampled = tensor(solve_host_stacked(foms, q0_full, t_sampled))
-        snapshots = torch.stack([
-            fom.noise(sampled[ell], noiselevel, generator=gens["noise"])
-            for ell, fom in enumerate(foms)
-        ])
+        with span("data.truth"):
+            true_states = tensor(solve_host_stacked(foms, q0_full, t_pred))
+        with span("data.samples"):
+            sampled = tensor(solve_host_stacked(foms, q0_full, t_sampled))
+            snapshots = torch.stack([
+                fom.noise(sampled[ell], noiselevel, generator=gens["noise"])
+                for ell, fom in enumerate(foms)
+            ])
 
     with stage("pod", f"joint POD to {r} modes"):
         basis = QuadraticLiftedBasis.fit(torch.cat(list(snapshots), dim=1), num_vectors=r)

@@ -28,6 +28,9 @@ refinement and the chained rollouts' bookkeeping run on every rank; the
 refinement's decision is rank 0's, broadcast. Sums over ranks run in
 another order than on one device, so a mesh changes the numbers at
 roundoff.
+
+A run is the span ``experiment``, each stage a child span of its name
+(``utils.timing``).
 """
 
 import dataclasses
@@ -48,6 +51,7 @@ from ...rom import GalerkinROM
 from ...solve.lstsq import WeightedLSTSQ
 from ...utils import TimedBlock, resolve_device, stage_generators
 from ...utils.device import DeviceLike
+from ...utils.timing import span
 from . import rollout, search
 from .data import euler_states, synthetic_states
 from .estimate import gp_estimate_windows, gp_estimate_windows_local, weight_windows
@@ -281,6 +285,7 @@ def _compress_and_fit_local(
     return ts, Y, torch.stack(svs), fit, torch.stack(bases), torch.stack(mus)
 
 
+@span("experiment")
 def run_scaled(
     n_space: int = 6000,
     n_snapshots: int = 10000,

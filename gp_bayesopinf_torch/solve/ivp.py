@@ -16,12 +16,18 @@
 becomes leading batch axes of the state. A diverging trajectory is
 clamped at +-1e18 and runs to the end; ``stability_mask`` then marks it
 invalid, the mask form of the reference's early termination.
+
+Each call of ``rk4_solve``, ``rk4_solve_np`` and ``dirk2_solve`` adds its
+steps to the innermost open span's counters (``utils.timing.count``),
+once, from host-known counts.
 """
 
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from ..utils.timing import count
 
 # Any |q| >= DIVERGED counts as blown up; the integrator clamps at a larger
 # sentinel so diverging members stay finite yet detectable.
@@ -84,6 +90,7 @@ def rk4_solve(
                 q + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4), -CLAMP, CLAMP
             )
         out.append(q)
+    count("rk4_steps", len(hs) * substeps)
     return torch.stack(out, dim=-1)
 
 
@@ -106,6 +113,7 @@ def rk4_solve_np(rhs: Callable, q0, t_eval, substeps: int = 8) -> np.ndarray:
             k4 = rhs(ts + h, q + h * k3)
             q = np.clip(q + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4), -CLAMP, CLAMP)
         out[i + 1] = q
+    count("rk4_steps", (t.size - 1) * substeps)
     return out.T
 
 
@@ -238,6 +246,7 @@ def dirk2_solve(
                 q + h * ((1.0 - GAMMA) * k1 + GAMMA * k2), -CLAMP, CLAMP
             )
         out.append(q)
+    count("dirk2_steps", len(hs) * substeps)
     return torch.stack(out, dim=-1)
 
 

@@ -1,5 +1,5 @@
-"""Stage timing and profiler traces (counterpart of
-``gp_bayesopinf_tpu/utils/timing.py``).
+"""Stage timing, spans, work counters and profiler traces (counterpart of
+``gp_bayesopinf_tpu/utils/timing.py``, which has the stage timers only).
 
 PyTorch returns from CUDA calls before the card has finished, so a stage
 timed on a CUDA device synchronizes before it reads the clock. Each block
@@ -7,21 +7,156 @@ is also a ``torch.profiler.record_function`` range, so a profiler trace
 of a pipeline run shows its stages (``profile_trace``,
 ``scripts/torch_stage_profile.py``); without a profiler the range costs
 one dispatcher call.
+
+The span recorder
+-----------------
+Every ``TimedBlock`` and every ``span(name)`` is recorded as a ``Span``
+``(id, parent, request, name, start_ns, end_ns, counters)``, stamped with
+``time.time_ns()``: the clock on which ``torch.profiler`` puts its
+events, so device operations can be matched to the spans that launched
+them. A ``span`` synchronizes nothing and reads nothing off the device;
+it is also a ``record_function`` range, so the Chrome trace of
+``--profile`` shows it. ``count(name, n)`` adds ``n`` to the innermost
+open span's ``counters``; the counts come from host-known quantities,
+once a call. A span opened while none is open is a root and takes a
+fresh request id, which its descendants share: each runner call
+(``run_euler``, ``run_heat_multi``, ``run_seird``, ``run_scaled``) is
+one root named ``experiment``; a fit outside a runner (a warm-up) is a
+root of its own. The open spans are a per-thread stack. Closed spans are
+kept in memory only, the last ``MAX_SPANS`` of them (``spans()``,
+``clear()``); nothing is written out. The recorder is always on.
+
+Spans (parent in brackets):
+
+* ``experiment`` (root): one runner call;
+* the runners' stages (``experiment``), ``TimedBlock`` names: ``data``,
+  ``pod``, ``gp_fit``, ``regression``, ``ensemble``, ``decompress``,
+  ``newparam``, ``ddtdata`` (and the SEIRD and scaled runners' own);
+* ``data.truth``, ``data.samples`` (``data``, Euler and heat): the truth
+  solve at the prediction grid; the solve at the sample times with the
+  noise;
+* ``gp.fit`` (``gp_fit``, or a root): ``fit_gaussian_processes``, with
+  ``gp.screen``, ``gp.rerank``, ``gp.polish`` and ``gp.final``, the four
+  phases of ``gp/fit.py``, and ``gp.estimates``, the estimates and the
+  weight roots;
+* ``search.grid``, ``search.refine`` (``regression``): the
+  regularization search's grid and bounded refinement;
+* ``posterior.integrate`` (``ensemble``, ``newparam``): the posterior
+  draws' integration in ``solution_posterior``;
+* ``ops.load_library``: a kernel library's first load.
+
+Counters (on the innermost open span):
+
+* ``rk4_steps``: (k - 1) substeps a ``rk4_solve`` or ``rk4_solve_np``;
+* ``dirk2_steps``: (k - 1) substeps a ``dirk2_solve``;
+* ``search_slots``, ``search_candidates``: per objective call of the
+  search, the candidates screened (padding included) and the distinct
+  real ones among them.
+
+Each counter feeds a benchmark metric (``benchmark/counts/spans.py``):
+the steps ``truth_ops_per_step`` and ``ensemble_ops_per_step``, the
+search's two ``search_useful_share``.
 """
 
+import collections
 import contextlib
+import itertools
 import logging
 import os
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
 from .device import DeviceLike
 
+#: Closed spans kept, the newest.
+MAX_SPANS = 65_536
+
+
+class Span(NamedTuple):
+    """A closed span; times are ``time.time_ns()``."""
+
+    id: int
+    parent: Optional[int]  # None for a root
+    request: int  # shared by a root and its descendants
+    name: str
+    start_ns: int
+    end_ns: int
+    counters: Dict[str, int]
+
+
+class _Open:
+    __slots__ = ("id", "parent", "request", "name", "start_ns", "counters")
+
+
+_closed = collections.deque(maxlen=MAX_SPANS)
+_local = threading.local()
+_span_ids = itertools.count(1)
+_request_ids = itertools.count(1)
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def _open(name: str) -> _Open:
+    stack = _stack()
+    sp = _Open()
+    sp.id, sp.name, sp.counters = next(_span_ids), name, {}
+    if stack:
+        sp.parent, sp.request = stack[-1].id, stack[-1].request
+    else:
+        sp.parent, sp.request = None, next(_request_ids)
+    stack.append(sp)
+    sp.start_ns = time.time_ns()
+    return sp
+
+
+def _close(sp: _Open) -> None:
+    end = time.time_ns()
+    _stack().remove(sp)
+    _closed.append(Span(sp.id, sp.parent, sp.request, sp.name, sp.start_ns, end, sp.counters))
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """A span around the block (or, as a decorator, each call): a child
+    of the innermost open span, or a root. No device synchronization."""
+    with torch.profiler.record_function(name):
+        sp = _open(name)
+        try:
+            yield
+        finally:
+            _close(sp)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` of the innermost open span of this
+    thread; nothing where none is open."""
+    stack = _stack()
+    if stack:
+        counters = stack[-1].counters
+        counters[name] = counters.get(name, 0) + n
+
+
+def spans() -> List[Span]:
+    """The closed spans kept, in the order they closed."""
+    return list(_closed)
+
+
+def clear() -> None:
+    """Forget the closed spans."""
+    _closed.clear()
+
 
 class TimedBlock:
-    """Context manager printing the wall-clock time of a stage.
+    """Context manager printing the wall-clock time of a stage, recorded
+    as a span named after its profiler range.
 
     Parameters
     ----------
@@ -61,6 +196,7 @@ class TimedBlock:
                   flush=True)
         self._sync()
         self._range.__enter__()
+        self._span = _open(self._range.name)
         self._t0 = time.perf_counter()
         return self
 
@@ -68,6 +204,7 @@ class TimedBlock:
         if exc_type is None:
             self._sync()
         self.elapsed = time.perf_counter() - self._t0
+        _close(self._span)
         self._range.__exit__(exc_type, exc, tb)
         if exc_type is None:
             if not self.silent:
