@@ -5,8 +5,9 @@
 Phases, each failing loudly (an uncaught exception exits non-zero):
 
 1. require CUDA; print the card's name and power limit; turn TF32 off;
-2. build both ensemble-screen kernels from ``gp_bayesopinf_torch/csrc``,
-   one nvcc each, in parallel, and print ptxas's registers and spills;
+2. build both ensemble-screen kernels and the fused Euler truth solve
+   from ``gp_bayesopinf_torch/csrc``, one nvcc each, in parallel, and
+   print ptxas's registers and spills;
 3. hold kernel A (RK4 "cAH" screen) against its plain PyTorch version on
    the card at the Euler ex1a screen shapes (G = 16 candidates, nd = 20
    draws, r = 6, d = 28, 8 RK4 substeps; k = 401 without the error term,
@@ -51,10 +52,20 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    turns with CUDA events, beside the bound; both families' launches on
    the main paths are read from every main-path run below (by the
    wrappers' per-family counts) and must be 0;
+4d. the fused Euler truth solve (``csrc/euler_truth.cu``) against the
+   ``rk4_solve`` loop through ``Euler.solve``: ex1a's two solves (nx 200,
+   the 401 prediction times and the 200 sample times of the CLI's seed)
+   and ``scaled``'s Euler source at its width (nx 2000) over
+   ``SCALED_LOCAL``'s 2,400 snapshots and at nx 3000, past the register
+   kernel's 2048 cells (the wide kernel, 240 snapshots); equal to the
+   bit, the kernel timed with CUDA events, the loop once;
 5. run the full ex1a workload through the port's CLI entry
    (``euler 0.06 200 0.03 400 6 --ndraws 600`` on ``cuda``) and check
    that the grid search went through kernel A, two launches per objective
-   evaluation, and that the posterior ensemble is sound;
+   evaluation, that the truth solves took the fused kernel (two
+   launches), that its decisions are the loop's to the digit (lambda
+   ``EX1A_LAMBDA``, ``EX1A_VALID`` valid draws) and that the posterior
+   ensemble is sound;
 6. run the full heat ex3 workload (``heat 1.0 20 0.05 80 5 --ndraws
    600``) and check that its search went through kernel B, two launches
    per objective evaluation for all five trajectories, and that every
@@ -160,6 +171,11 @@ EX3 = ["heat", "1.0", "20", "0.05", "80", "5", "--ndraws", "600", "--device", "c
 SEIRD_EX1A = ["seird", "90", "90", "0.10", "360", "--ndraws", "600", "--device", "cuda"]
 EX1C = ["euler", "0.06", "200", "0.03", "3200", "6", "--ndraws", "600", "--device", "cuda"]
 SCALED = ["scaled", "--quiet", "--device", "cuda"]
+# ex1a's decisions at the CLI's seed (27092023) on the H100, through the
+# rk4_solve loop and the fused truth solve alike.
+EX1A_LAMBDA, EX1A_VALID = "6.143891e-02", 584
+# The Euler source's initial-condition knots (pipeline/scaled/data.py).
+EULER_KNOTS = (22.0, 20.0, 24.0, 95.0, 105.0, 100.0)
 EULER16 = ["euler", "0.06", "200", "0.03", "400", "16", "--ndraws", "600", "--device", "cuda"]
 # r = 9, not 10: at r = 10 the 20-draw grid screen rejects every candidate
 # on the card (PERF.md, section 6), so 9 is the largest r above the templated
@@ -880,11 +896,14 @@ def call_counted(fn, kernel):
 
 def pipeline_phase():
     """Phase 5; returns the kernel A launches of the run, its search's
-    inputs (``ex1a_search_inputs``) for phase ``mesh`` and the result for
-    phase ``examples``."""
+    inputs (``ex1a_search_inputs``) for phase ``mesh``, the result for
+    phase ``examples`` and the fused truth solve's launches."""
+    from gp_bayesopinf_torch.ops import euler_truth
     from gp_bayesopinf_torch.pipeline import ensemble_error
 
+    euler_truth.launches = 0
     res, wall, launches, evals = run_counted(EX1A, "quadratic_ensemble_screen")
+    truth = euler_truth.launches
 
     n_valid = int(res.valid.sum())
     err = ensemble_error(res)
@@ -892,7 +911,11 @@ def pipeline_phase():
           + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
     print(f"[ex1a] lambda {res.regularizer:.6e}, "
           f"valid {n_valid}/600, ensemble-mean error vs compressed truth {err:.4f}, "
-          f"kernel launches {launches} in {evals} objective evaluations", flush=True)
+          f"kernel launches {launches} in {evals} objective evaluations, "
+          f"fused truth-solve launches {truth}", flush=True)
+    assert truth == 2, f"{truth} fused truth-solve launches in the ex1a run"
+    assert (f"{res.regularizer:.6e}", n_valid) == (EX1A_LAMBDA, EX1A_VALID), \
+        (res.regularizer, n_valid)
     assert launches >= 12, f"only {launches} kernel launches in the ex1a run"
     assert launches == 2 * evals, f"{launches} launches in {evals} evaluations"
     assert math.isfinite(res.regularizer) and res.regularizer > 0
@@ -900,7 +923,55 @@ def pipeline_phase():
     assert bool(torch.isfinite(res.draws_compressed[res.valid]).all())
     assert bool(torch.isfinite(res.draws).all())
     assert err < 0.5, f"ensemble-mean error {err:.4f}"
-    return launches, ex1a_search_inputs(res), res
+    return launches, ex1a_search_inputs(res), res, truth
+
+
+def euler_truth_phase():
+    """Phase 4d: ``Euler.solve`` through the fused kernel against the
+    ``rk4_solve`` loop at the substeps its CFL rule chose; returns each
+    case's times for the summary."""
+    from gp_bayesopinf_torch.models import Euler
+    from gp_bayesopinf_torch.models import euler as euler_module
+    from gp_bayesopinf_torch.pipeline.configs import EulerConfig
+    from gp_bayesopinf_torch.solve.ivp import rk4_solve
+    from gp_bayesopinf_torch.utils.keys import stage_generators
+
+    cfg = EulerConfig()
+    ex1a = Euler(cfg.spatial_domain, substeps=cfg.fom_substeps)
+    u = torch.rand(200, generator=stage_generators(cfg.seed, "cuda")["sample"],
+                   dtype=torch.float64, device="cuda")
+    t_samples = np.sort((0.06 * u).cpu().numpy())  # as run_euler draws them
+    t_samples[0], t_samples[-1] = 0.0, 0.06
+    cases = [("ex1a prediction, nx 200, k 401", ex1a, cfg.init_params, cfg.time_domain),
+             ("ex1a samples, nx 200, k 200", ex1a, cfg.init_params, t_samples),
+             ("scaled Euler source, nx 2000, k 2400", Euler(np.linspace(0.0, 2.0, 2001)[:-1]),
+              EULER_KNOTS, np.linspace(0.0, 0.06, 2400)),
+             ("scaled Euler source, nx 3000 (n_space 9000, the wide kernel), k 240",
+              Euler(np.linspace(0.0, 2.0, 3001)[:-1]), EULER_KNOTS, np.linspace(0.0, 0.006, 240))]
+    kernel = euler_module.euler_rk4_cuda
+    out = {}
+    for name, model, knots, times in cases:
+        ics = model.initial_conditions(knots, device="cuda")
+        calls = []
+        euler_module.euler_rk4_cuda = lambda *a: calls.append(a) or kernel(*a)
+        try:
+            fused = model.solve(ics, times)
+        finally:
+            euler_module.euler_rk4_cuda = kernel
+        (args,) = calls
+        q0, t, substeps = args[:3]
+        ms = cuda_ms(lambda: kernel(*args), 10)
+        t0 = time.perf_counter()
+        looped = model.lift(rk4_solve(model.derivative, q0, t, substeps=substeps))
+        torch.cuda.synchronize()
+        loop_ms = 1e3 * (time.perf_counter() - t0)
+        steps = (len(times) - 1) * substeps
+        print(f"[euler truth] {name}: {substeps} substeps, {steps} RK4 steps; fused "
+              f"{ms:.3f} ms ({1e6 * ms / steps:.1f} ns a step), loop {loop_ms:.1f} ms "
+              f"({loop_ms / ms:.0f}x); equal to the bit", flush=True)
+        assert torch.equal(fused, looped), name
+        out[name] = {"ms": ms, "loop_ms": loop_ms, "steps": steps, "nx": q0.shape[0] // 3}
+    return out
 
 
 def ex1a_search_inputs(res):
@@ -1759,11 +1830,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(sys.version.split()[0], torch.__version__, torch.version.cuda, flush=True)
 
-    names = ("quadratic_screen", "cahbn_screen")
+    names = ("quadratic_screen", "cahbn_screen", "euler_truth")
     t_start = t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         infos = dict(zip(names, pool.map(build, names)))
-    print(f"[build] both in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[build] all in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in infos.items():
         print(f"[build] {info.path.name} in {info.seconds:.1f} s", flush=True)
         for line in info.log.splitlines():
@@ -1781,8 +1852,9 @@ def main() -> int:
     fields["cahbn_ensemble_screen"] = phase("kernel B", cahbn_phase)
     wide_b = phase("kernel B, capacity", capacity_b_phase)
     wide = phase("kernels A and B, wide and runtime", wide_phase_4c)
-    fields["quadratic_ensemble_screen"]["launches"], ex1a_search, ex1a_res = phase(
-        "ex1a", pipeline_phase)
+    truth = phase("euler truth", euler_truth_phase)
+    fields["quadratic_ensemble_screen"]["launches"], ex1a_search, ex1a_res, truth_launches = \
+        phase("ex1a", pipeline_phase)
     fields["cahbn_ensemble_screen"]["launches"] = phase("ex3", heat_phase)
     # Kernel A carries several main paths: its launches are those of all runs.
     seird_launches, seird_res = phase("seird", seird_phase)
@@ -1855,6 +1927,18 @@ def main() -> int:
                           dict(f[family], launches=MAIN_PATH_4C[names[label[0]]][family]),
                           family=family, launches_path=none, **extra(f[family]))
                     for label, f in wide.items()]
+    # The fused Euler truth solve replaces no TPU kernel: the JAX package's
+    # truth solve is a lax.scan that XLA fuses. Phase 5 counts the ex1a
+    # run's launches, its two shapes' together; no main path runs the
+    # scaled source's widths.
+    kernels += [{"name": "euler_rk4_wide" if f["nx"] > 2048 else "euler_rk4", "route": "cuda",
+                 "source": "gp_bayesopinf_torch/csrc/euler_truth.cu", "replaces": None,
+                 "launches": truth_launches if name.startswith("ex1a") else 0,
+                 "launches_path": ("ex1a: its prediction and sample solves together"
+                                   if name.startswith("ex1a") else
+                                   "none: only scaled --source euler runs this width"),
+                 "shape": name, "ms": f["ms"], "loop_ms": f["loop_ms"], "steps": f["steps"]}
+                for name, f in truth.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,7 +47,10 @@ Spans (parent in brackets):
 
 Counters (on the innermost open span):
 
-* ``rk4_steps``: (k - 1) substeps a ``rk4_solve`` or ``rk4_solve_np``;
+* ``rk4_steps``: (k - 1) substeps a ``rk4_solve`` or ``rk4_solve_np``,
+  and a fused Euler truth solve (``Euler.solve`` on the card);
+* ``rk4_fused_steps``: the same steps of a fused Euler truth solve
+  (``ops/euler_truth.py``);
 * ``dirk2_steps``: (k - 1) substeps a ``dirk2_solve``;
 * ``search_slots``, ``search_candidates``: per objective call of the
   search, the candidates screened (padding included) and the distinct
@@ -55,7 +58,8 @@ Counters (on the innermost open span):
 
 Each counter feeds a benchmark metric (``benchmark/counts/spans.py``):
 the steps ``truth_ops_per_step`` and ``ensemble_ops_per_step``, the
-search's two ``search_useful_share``.
+fused steps ``truth_fused_share``, the search's two
+``search_useful_share``.
 """
 
 import collections

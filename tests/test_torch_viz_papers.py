@@ -27,6 +27,9 @@ def data(tmp_path_factory):
 
 @pytest.mark.parametrize("name", sorted(PAPERS))
 def test_paper_matches_jax(name, data, tmp_path, capsys, monkeypatch):
+    # Figures that other test files of this process left open are not the
+    # papers': start from none, so that the last assertion sees theirs only.
+    plt.close("all")
     made, drawn = {}, {}
     for mod, sub in ((paper, "port"), (jpaper, "jax")):
         drawn[sub] = []
