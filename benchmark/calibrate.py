@@ -1,7 +1,7 @@
 """Readings that the check's limits are set from, on the card.
 
     python3 benchmark/calibrate.py --workload <cell> --data-seeds 11 12 ... [--control 11 12 13]
-                                   [--runs-through N]
+                                   [--runs-through N] [--truncate 1e6 1e8]
 
 For each data seed in turn, one experiment of the cell as the window runs
 it; then every compared number of the program against the float64
@@ -10,7 +10,10 @@ also the reference computed in the next lower precision in the program's
 place against it (float32 for the float64 stages and bfloat16 for the
 float32 screen: the upper readings), and ``gp_fit`` of two planted fits
 that stop short: the program's fit without its Adam descent and Newton
-polish (the best of its starts), and its first guess alone. With
+polish (the best of its starts), and its first guess alone; and, for
+each factor given to ``--truncate``, the experiment run again with the
+factored roots' pivoted Cholesky stopped at that many times the method's
+tolerance (a planted truncation, read where the roots are factored). With
 ``--runs-through N`` it stops once N experiments have run through, and
 an experiment whose search raises is reported and passed over: how the
 traffic's pool of data seeds is chosen. One JSON line per seed and side
@@ -22,6 +25,7 @@ import json
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -60,12 +64,28 @@ def short_fits(seed: int, obs: dict, config: dict, device) -> dict:
     return out
 
 
+def truncated(run, seed: int, cache: dict, factor: float, pick) -> dict:
+    """The numbers of the experiment at ``seed`` run again with the
+    factored roots' pivoted Cholesky tolerance ``factor`` times the
+    method's."""
+    import gp_bayesopinf_torch.gp.lowrank as lowrank
+
+    from benchmark.harness import drive
+
+    with mock.patch.object(lowrank, "DEFAULT_TOL_FACTOR", lowrank.DEFAULT_TOL_FACTOR * factor), \
+            drive.Instruments(run.config, run.runner_module) as inst:
+        _, res = run.experiment(seed, inst)
+        capture = dict(inst.capture)
+    return run.judge(seed, run.observe(res, capture, pick), cache)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--data-seeds", type=int, nargs="+", required=True)
     p.add_argument("--control", type=int, nargs="*", default=[])
     p.add_argument("--runs-through", type=int, default=0)
+    p.add_argument("--truncate", type=float, nargs="*", default=[])
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
@@ -101,6 +121,12 @@ def main(argv=None) -> int:
                               "lambda": obs["lam"], "refined": obs["refined"], "within": ok,
                               "numbers": {k: measure._num(v) for k, v in values.items()},
                               **({"gp_fit_short": faults} if side == "control" else {})}),
+                  flush=True)
+        for factor in args.truncate if control else []:
+            values = truncated(run, s, cache, factor, pick)
+            print(json.dumps({"experiment_seed": s, "side": f"truncated x{factor:g}",
+                              "within": judge.verdict(values, cell.check["limits"])[0],
+                              "numbers": {k: measure._num(v) for k, v in values.items()}}),
                   flush=True)
     return 0
 

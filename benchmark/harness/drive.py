@@ -1,10 +1,11 @@
 """One run of a cell: set-up, the measured window, the check.
 
-Set-up loads the program, builds or loads only the cell's kernel library,
-and warms up the shapes that the traffic's ``warmup`` block lists: one GP
-fit at its (rows, m, m') on data of a fixed seed of its own, and one
-screen launch on each of its grids. The window then runs the experiment
-back to back with one client (closed loop). Each experiment takes a data
+Set-up loads the program, builds or loads the kernel libraries that the
+cell's configuration lists, and warms up the shapes that the traffic's
+``warmup`` block lists: one GP fit at its (rows, m, m') on data of a
+fixed seed of its own, and one screen launch on each of its grids. The
+window then runs the experiment back to back with one client (closed
+loop). Each experiment takes a data
 seed from the traffic's fixed pool, in an order drawn from ``--seed``, so
 that every run does the same work; one starts only while the time left is
 at least the longest experiment seen so far (the first always starts).
@@ -247,7 +248,8 @@ def follow_of(obs: dict) -> dict:
     experiment``), from its observations."""
     return {"theta": obs["theta"], "lam": obs["lam"], "refined": obs["refined"],
             "best": int(np.argmin(obs["grid_errors"])),
-            "covariance": obs["covariance"], "roots": obs["roots"],
+            "covariance": obs.get("covariance"), "roots": obs.get("roots"),
+            "lowrank": obs.get("lowrank"),
             "mean": obs["post_mean"], "factor": obs["factor"],
             "compressed": obs["compressed"], "candidates": obs["candidates"],
             "draws": obs["draws_index"], "decompressed_index": obs.get("decompressed_index")}

@@ -17,9 +17,20 @@ lower precision, or with a fault, does not:
   method's own starts, over max(1, |NLML|): a fit that stops short reads
   high (``reference.experiment.fit_gaps``);
 * ``estimates``: the GP state and derivative estimates, row by row, in
-  max-norm, and each GP's derivative covariance C in Frobenius norm;
-* ``roots``: each GP's weight root (C + eta I)^{-1/2} against the
-  reference's from the measured run's own C, in Frobenius norm;
+  max-norm, and each GP's derivative covariance C in Frobenius norm
+  where the run forms C (a factored root forms none);
+* ``roots``: each GP's dense weight root (C + eta I)^{-1/2} against the
+  reference's from the measured run's own C, in Frobenius norm; of a
+  factored root (I - Q diag(gain) Q^T) / sqrt(eta), the spectral norm
+  of the tail C - Q diag(lam) Q^T against the reference's C, over eta:
+  an eigenvalue mu of C that the factors leave out moves the root in its
+  direction by 1 - sqrt(eta / (eta + mu)), about mu / (2 eta), of the
+  root's largest eigenvalue 1 / sqrt(eta), so eta, not ||C||, is the
+  tail's scale (``lowrank_gaps``);
+* ``root_basis``: of a factored root, the larger of max|Q^T Q - I| and
+  the gain's largest gap from 1 - sqrt(eta / (eta + lam)) at the
+  configuration's eta, each a share of 1 / sqrt(eta) by which the root
+  moves (``lowrank_gaps``);
 * ``posterior``: each operator row's posterior mean (2-norm) and
   covariance (Frobenius norm) at the chosen regularizer;
 * ``search_err``: the search objective at the sampled grid candidates
@@ -33,6 +44,10 @@ lower precision, or with a fault, does not:
   largest difference over its largest magnitude (and the decompressed
   draws' likewise, per variable).
 
+A number is computed only where its observations are present (a method
+without a POD stage has no ``pod``); the check file's limits list the
+numbers that must be read, and ``verdict`` fails one that was not.
+
 A sampled candidate (or the refinement's choice) or draw that one side
 keeps and the other rejects, where the reference's largest ratio to the
 stability envelope is farther than ``MARGIN`` from 1, makes its number
@@ -42,6 +57,7 @@ infinite, as does a gap that is not a number.
 import math
 
 import numpy as np
+import scipy.sparse.linalg
 
 MAXOPTVAL = 1e12
 #: The allowance at the envelope's edge: the screens are float32 by
@@ -140,27 +156,44 @@ def choice_gap(obs: dict, ref: dict) -> float:
     return max(0.0, _finite((at_lam - at_best) / at_best))
 
 
-def numbers(obs: dict, ref: dict, nblocks: int) -> dict:
-    """Every compared number of one experiment (see the module's doc)."""
-    out = {}
-    out["truth"] = _blocks_gap(obs["truth"], ref["truth"], nblocks)
-    if "newparam_truth" in obs:
-        out["truth"] = max(out["truth"], _blocks_gap(obs["newparam_truth"][None],
-                                                     ref["newparam_truth"][None], nblocks))
-    out["snapshots"] = _blocks_gap(obs["snapshots"], ref["snapshots"], nblocks)
-    out["pod"] = _rows_gap(obs["compressed"], ref["compressed"])
-    nl_o, nl_r = np.asarray(obs["nlml"], np.float64), np.asarray(ref["nlml"], np.float64)
-    out["gp_nlml"] = _finite(np.max(np.abs(nl_o - nl_r) / np.maximum(1.0, np.abs(nl_r))))
-    # The reference measured the program's fit; the control measured its own.
-    out["gp_fit"] = _finite(np.max(obs.get("fit_gap", ref["fit_gap"])))
-    out["estimates"] = max(_rows_gap(obs["state_est"], ref["state_est"], np.inf),
-                           _rows_gap(obs["ddt_est"], ref["ddt_est"], np.inf),
-                           _rows_gap(obs["covariance"], ref["covariance"], "fro"))
-    out["roots"] = _rows_gap(obs["roots"], ref["roots"], "fro")
-    out["posterior"] = max(_rows_gap(obs["post_mean"], ref["post_mean"]),
-                           _rows_gap(obs["post_cov"], ref["post_cov"], "fro"))
-    out["search_choice"] = choice_gap(obs, ref)
+def _spectral_norm(E) -> float:
+    """The largest |eigenvalue| of the symmetric ``E``: Lanczos from a
+    fixed random start, the dense eigenvalues where it fails or ``E`` is
+    small."""
+    if not np.all(np.isfinite(E)):
+        return math.inf
+    if E.shape[0] > 64:
+        v0 = np.random.default_rng(0).standard_normal(E.shape[0])
+        try:
+            return float(np.max(np.abs(scipy.sparse.linalg.eigsh(
+                E, k=1, which="LM", v0=v0, tol=1e-3, return_eigenvectors=False))))
+        except scipy.sparse.linalg.ArpackError:
+            pass
+    return float(np.max(np.abs(np.linalg.eigvalsh(E))))
 
+
+def lowrank_gaps(factors, covariance, eta: float):
+    """(``roots``, ``root_basis``) of factored roots (see the module's
+    doc): ``factors`` nested lists over trajectories and GPs of {"Q",
+    "gain", "lam"}, the reference's ``covariance`` (L, r, m', m'), one
+    for each factored root; a count that differs reads infinite."""
+    flat = [f for row in factors for f in row]
+    covs = np.reshape(covariance, (-1,) + np.shape(covariance)[-2:])
+    if len(flat) != len(covs):
+        return math.inf, math.inf
+    tail = basis = 0.0
+    for f, C in zip(flat, covs):
+        Q, gain, lam = (np.asarray(f[k], np.float64) for k in ("Q", "gain", "lam"))
+        E = np.asarray(C, np.float64) - (Q * lam) @ Q.T
+        tail = max(tail, _finite(_spectral_norm(E) / eta))
+        orth = np.max(np.abs(Q.T @ Q - np.eye(Q.shape[1])), initial=0.0)
+        with np.errstate(invalid="ignore"):
+            g = np.max(np.abs(gain - (1.0 - np.sqrt(eta / (eta + lam)))), initial=0.0)
+        basis = max(basis, _finite(orth), _finite(g))
+    return tail, basis
+
+
+def _search_err(obs: dict, ref: dict) -> float:
     gaps, flips = [0.0], 0
     for c, e_obs in obs["grid"].items():
         margin = float(ref["grid_margin"][c])
@@ -169,8 +202,10 @@ def numbers(obs: dict, ref: dict, nblocks: int) -> dict:
             gaps.append(_finite(abs(e_obs - ref["grid_err"][c]) / ref["grid_err"][c]))
     if ref["refine_margin"] is not None:
         flips += _flip(obs["refine_kept"], ref["refine_margin"])
-    out["search_err"] = math.inf if flips else max(gaps)
+    return math.inf if flips else max(gaps)
 
+
+def _ensemble(obs: dict, ref: dict, nblocks: int) -> float:
     gaps, flips = [0.0], 0
     kept, margins = np.asarray(obs["draw_kept"]), np.asarray(ref["draw_margin"])
     for idx in np.ndindex(*kept.shape):
@@ -188,7 +223,46 @@ def numbers(obs: dict, ref: dict, nblocks: int) -> dict:
             if k and margin <= 1.0:
                 o, r = obs["newparam_draws"][j], ref["newparam_draws"][j]
                 gaps.append(_finite(np.max(np.abs(o - r)) / np.max(np.abs(r))))
-    out["ensemble"] = math.inf if flips else max(gaps)
+    return math.inf if flips else max(gaps)
+
+
+def numbers(obs: dict, ref: dict, nblocks: int) -> dict:
+    """Every compared number of one experiment whose observations are
+    present (see the module's doc)."""
+    out = {}
+    if "truth" in obs:
+        out["truth"] = _blocks_gap(obs["truth"], ref["truth"], nblocks)
+        if "newparam_truth" in obs:
+            out["truth"] = max(out["truth"], _blocks_gap(obs["newparam_truth"][None],
+                                                         ref["newparam_truth"][None], nblocks))
+    if "snapshots" in obs:
+        out["snapshots"] = _blocks_gap(obs["snapshots"], ref["snapshots"], nblocks)
+    if "compressed" in obs:
+        out["pod"] = _rows_gap(obs["compressed"], ref["compressed"])
+    if "nlml" in obs:
+        nl_o, nl_r = np.asarray(obs["nlml"], np.float64), np.asarray(ref["nlml"], np.float64)
+        out["gp_nlml"] = _finite(np.max(np.abs(nl_o - nl_r) / np.maximum(1.0, np.abs(nl_r))))
+        # The reference measured the program's fit; the control measured its own.
+        out["gp_fit"] = _finite(np.max(obs.get("fit_gap", ref["fit_gap"])))
+    if "state_est" in obs:
+        gaps = [_rows_gap(obs["state_est"], ref["state_est"], np.inf),
+                _rows_gap(obs["ddt_est"], ref["ddt_est"], np.inf)]
+        if "covariance" in obs:
+            gaps.append(_rows_gap(obs["covariance"], ref["covariance"], "fro"))
+        out["estimates"] = max(gaps)
+    if "roots" in obs:
+        out["roots"] = _rows_gap(obs["roots"], ref["roots"], "fro")
+    elif "lowrank" in obs:
+        out["roots"], out["root_basis"] = lowrank_gaps(obs["lowrank"], ref["covariance"],
+                                                       ref["eta"])
+    if "post_mean" in obs:
+        out["posterior"] = max(_rows_gap(obs["post_mean"], ref["post_mean"]),
+                               _rows_gap(obs["post_cov"], ref["post_cov"], "fro"))
+    if "grid" in obs:
+        out["search_choice"] = choice_gap(obs, ref)
+        out["search_err"] = _search_err(obs, ref)
+    if "draw_kept" in obs:
+        out["ensemble"] = _ensemble(obs, ref, nblocks)
     return out
 
 

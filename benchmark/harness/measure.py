@@ -1,17 +1,36 @@
 """A whole run of one cell: set-up, window, check, metrics, the result line."""
 
 import math
+import multiprocessing
+import os
 import sys
 import time
 import traceback
 
 import torch
 
-from . import drive, judge
+from . import drive, judge, spec
 from .trace import DeviceTrace
 
 #: What a number that is not finite is printed as: JSON has no infinity.
 NOT_FINITE = 1e300
+#: The check holds the window's experiments against the reference in at
+#: most this many processes, each on one thread: the reference's work is
+#: the host's, and an experiment's is independent of the others'.
+CHECK_PROCESSES = 6
+#: Top-level modules that no process of a run may load: JAX's and the JAX
+#: package's, compared by whole names.
+FORBIDDEN = ("jax", "jaxlib", "flax", "gp_bayesopinf_tpu")
+
+
+class ForbiddenModules(RuntimeError):
+    """A process of the check loaded modules of JAX or the JAX package."""
+
+
+def forbidden_modules():
+    """This process's loaded modules whose top-level name is JAX's or the
+    JAX package's."""
+    return sorted({name.split(".")[0] for name in list(sys.modules)} & set(FORBIDDEN))
 
 
 def _num(x):
@@ -20,15 +39,16 @@ def _num(x):
 
 
 def set_up(cell, device):
-    """Loads the cell's kernel library (built on a checkout's first run)
-    and warms up its shapes; returns the ``drive.Run`` and the warm-up's
-    walls."""
+    """Loads every kernel library the cell's configuration names (built
+    on a checkout's first run) and warms up its shapes; returns the
+    ``drive.Run`` and the warm-up's walls."""
     from gp_bayesopinf_torch.ops.build import load_library
 
     run = drive.Run(cell, device)
     if torch.device(device).type == "cuda":
         torch.cuda.init()
-        load_library(cell.config["library"])
+        for name in cell.config["library"]:
+            load_library(name)
     warm = drive.warm_up(cell.config, cell.traffic, device)
     return run, warm
 
@@ -65,8 +85,54 @@ def window(run, seed: int, seconds: float, tracer=None):
     return start, end, done, failures, inst
 
 
+def _judge_share(root, home, name, device, share):
+    """(the numbers of each (seed, observations) of ``share``, the
+    forbidden modules loaded), in a process of the check's own."""
+    cell = spec.Cell(spec.load(root), name, root, home)
+    run, cache = drive.Run(cell, device), {}
+    return [run.judge(s, obs, cache) for s, obs in share], forbidden_modules()
+
+
+def check(run, observed, device) -> list:
+    """Each experiment's numbers, in the order of ``observed`` [(seed,
+    observations)]: one experiment in this process; more shared out, in
+    the order of their data seeds, over up to ``CHECK_PROCESSES`` spawned
+    processes, which end before it returns. Raises ``ForbiddenModules``
+    where one of those processes loaded modules of JAX or the JAX
+    package (this process's own are the caller's to look for)."""
+    if len(observed) < 2:
+        return [run.judge(s, obs, {}) for s, obs in observed]
+    order = sorted(range(len(observed)), key=lambda i: observed[i][0])
+    k = min(CHECK_PROCESSES, len(order))
+    shares = [order[j::k] for j in range(k)]
+    cell = run.cell
+    saved = {v: os.environ.get(v) for v in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS")}
+    os.environ.update(dict.fromkeys(saved, "1"))  # read as each process starts
+    try:
+        with multiprocessing.get_context("spawn").Pool(k) as pool:
+            results = pool.starmap(_judge_share, [
+                (cell.root, cell.home, cell.name, device, [observed[i] for i in share])
+                for share in shares])
+    finally:
+        for v, value in saved.items():
+            if value is None:
+                del os.environ[v]
+            else:
+                os.environ[v] = value
+    found = sorted({m for _, loaded in results for m in loaded})
+    if found:
+        raise ForbiddenModules(f"the check's processes loaded modules of JAX or the JAX "
+                               f"package: {found}")
+    out = [None] * len(observed)
+    for share, (numbers, _) in zip(shares, results):
+        for i, n in zip(share, numbers):
+            out[i] = n
+    return out
+
+
 def measure(cell, seed: int, seconds: float, trace: bool, device, t_start: float):
-    """(result line, [(number, value, limit)]) of one run."""
+    """(result line, [(number, value, limit)]) of one run; raises
+    ``ForbiddenModules`` as ``check`` does."""
     run, warm = set_up(cell, device)
     cuda = torch.device(device).type == "cuda"
     if cuda:
@@ -89,10 +155,8 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, t_start: float
 
     limits = cell.check["limits"]
     t_check = time.perf_counter()
-    cache, per_experiment, wrong = {}, [], 0
-    for s, obs in observed:
-        per_experiment.append(run.judge(s, obs, cache))
-        wrong += not judge.verdict(per_experiment[-1], limits)[0]
+    per_experiment = check(run, observed, device)
+    wrong = sum(not judge.verdict(n, limits)[0] for n in per_experiment)
     for s in failures:
         print(f"experiment seed {s} raised", file=sys.stderr)
     print(f"reference check of {len(per_experiment)} experiment(s): "

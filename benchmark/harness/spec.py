@@ -178,6 +178,7 @@ class Cell:
             raise SpecError(f"no cell {name!r}; cells: {sorted(cells)}")
         root, home = Path(root), Path(home)
         self.spec, self.name, self.entry = spec, name, cells[name]
+        self.root, self.home = root, home
         self.chips = self.entry["chips"]
         cfg_entry = next(c for c in spec["configs"] if c["name"] == self.entry["config"])
         self.config = _read_json(root / cfg_entry["file"])

@@ -3,6 +3,15 @@ and the harness's captures), as NumPy arrays on the host."""
 
 import numpy as np
 
+from .weights import weights
+
+#: Where the check's tests plant faults: the class that draws the
+#: posterior ensemble, the ROM integrator of its draws, and the plain
+#: version of the screen (in the module of the config's screen function).
+POSTERIOR = "gp_bayesopinf_torch.bayes.posterior:BayesianROM"
+INTEGRATOR = "gp_bayesopinf_torch.rom.model:rk4_solve"
+PLAIN_SCREEN = "quadratic_ensemble_screen_torch"
+
 
 def observe(result, capture, pick):
     """The observations of one experiment; ``pick(ndraws, grid_errors)``
@@ -18,6 +27,7 @@ def observe(result, capture, pick):
     position = np.cumsum(valid) - 1
     dec = [j for j in J if valid[j]][:n_dec]
     return {
+        **weights([gps]),
         "t_sampled": np.asarray(result.time_domain_sampled),
         "truth": host(result.true_states)[None],
         "snapshots": host(result.snapshots_sampled)[None],
@@ -26,8 +36,6 @@ def observe(result, capture, pick):
         "nlml": np.asarray(capture["nlml"])[None],
         "state_est": np.stack([host(gp.state_estimate) for gp in gps])[None],
         "ddt_est": np.stack([host(gp.ddt_estimate) for gp in gps])[None],
-        "covariance": np.stack([host(gp.ddt_covariance) for gp in gps])[None],
-        "roots": np.stack([host(gp.sqrtW) for gp in gps])[None],
         "post_mean": host(post.means),
         "post_cov": host(post.covariances()),
         "factor": host(post.cov_factors),

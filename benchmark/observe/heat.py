@@ -4,6 +4,13 @@ on the host."""
 
 import numpy as np
 
+from .weights import weights
+
+#: Where the check's tests plant faults (as in ``observe.euler``).
+POSTERIOR = "gp_bayesopinf_torch.bayes.posterior:BayesianROM"
+INTEGRATOR = "gp_bayesopinf_torch.rom.model:dirk2_solve"
+PLAIN_SCREEN = "cahbn_ensemble_screen_torch"
+
 
 def observe(result, capture, pick):
     """The observations of one experiment; ``pick`` as in
@@ -16,6 +23,7 @@ def observe(result, capture, pick):
     J, cands, _ = pick(valid.shape[1], np.asarray(search.grid_errors))
     L, r = len(gps), len(gps[0])
     out = {
+        **weights(gps),
         "t_sampled": np.asarray(result.time_domain_sampled),
         "truth": host(result.true_states),
         "snapshots": host(result.snapshots),
@@ -25,8 +33,6 @@ def observe(result, capture, pick):
         "nlml": np.asarray(capture["nlml"]).reshape(L, r),
         "state_est": np.stack([np.stack([host(gp.state_estimate) for gp in g]) for g in gps]),
         "ddt_est": np.stack([np.stack([host(gp.ddt_estimate) for gp in g]) for g in gps]),
-        "covariance": np.stack([np.stack([host(gp.ddt_covariance) for gp in g]) for g in gps]),
-        "roots": np.stack([np.stack([host(gp.sqrtW) for gp in g]) for g in gps]),
         "post_mean": host(post.means),
         "post_cov": host(post.covariances()),
         "factor": host(post.cov_factors),

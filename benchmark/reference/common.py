@@ -126,6 +126,31 @@ def weight_root(C, eta, dtype):
     return (V / np.sqrt(w)) @ V.T
 
 
+#: Where a factored root's spectrum ends, as a share of eta: the method's
+#: pivoted Cholesky stops once the residual diagonal is this small.
+LOWRANK_TOL = 1e-8
+
+
+def lowrank_root(C, eta, dtype) -> dict:
+    """The factored root (I - Q diag(gain) Q^T) / sqrt(eta) of (C + eta
+    I)^{-1/2}, in ``dtype``: the eigenpairs of C above ``LOWRANK_TOL``
+    eta, {"Q", "gain", "lam"}."""
+    C = np.asarray(C, dtype)
+    lam, Q = la.eigh(C, subset_by_value=(dtype(LOWRANK_TOL * eta), np.inf))
+    return {"Q": Q, "gain": 1.0 - np.sqrt(dtype(eta) / (dtype(eta) + lam)), "lam": lam}
+
+
+def apply_lowrank(Q, lam, eta, X, dtype):
+    """(C + eta I)^{-1/2} X for C = Q diag(lam) Q^T with orthonormal ``Q``:
+    (X - Q diag(1 - sqrt(eta / (eta + lam))) Q^T X) / sqrt(eta), in
+    ``dtype``; the gain is worked out here from ``lam``."""
+    Q, lam, X = (np.asarray(a, dtype) for a in (Q, lam, X))
+    eta = dtype(eta)
+    gain = 1.0 - np.sqrt(eta / (eta + lam))
+    X2 = X.reshape(X.shape[0], -1)
+    return ((X2 - Q @ (gain[:, None] * (Q.T @ X2))) / np.sqrt(eta)).reshape(X.shape)
+
+
 def gp_nlml(t, y, sigma2, ell, chi, dtype) -> float:
     """Exact negative log marginal likelihood, in ``dtype``; NaN where the
     Cholesky factorization fails."""

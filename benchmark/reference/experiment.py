@@ -22,6 +22,13 @@ to match or beat. ``follow`` carries them:
   computations of C by more than eta: the reference works the root out
   again from the measured run's C (judged against its own C), and
   regresses with the measured run's roots (judged against that);
+* ``lowrank`` (in place of ``covariance`` and ``roots``, where the run
+  factors its roots and forms no C): nested lists over trajectories and
+  GPs of the run's {"Q", "gain", "lam"}, the factored root (I - Q
+  diag(gain) Q^T) / sqrt(eta). The reference regresses with Q and lam,
+  working the gain out again, and ``judge`` holds the factors against
+  the reference's own C on eta's scale (``roots``), which that roundoff
+  bounds from below, and the gain against lam (``root_basis``);
 * ``lam``, ``refined``, ``best``: the chosen regularizer, whether the
   bounded refinement found it (else it is the grid's best), and the
   grid's best candidate by the measured run's grid errors;
@@ -43,12 +50,11 @@ MAXOPTVAL = 1e12  # the objective of a rejected candidate
 SCREEN_DRAWS = 20  # posterior draws per candidate in the search
 
 
-def estimates(t_sampled, compressed, t_est, theta, eta, covariance, dtype):
+def estimates(t_sampled, compressed, t_est, theta, dtype):
     """(state (L, r, m'), ddt (L, r, m'), ddt covariances C (L, r, m',
-    m'), weight roots (L, r, m', m') of the measured run's covariances
-    ``covariance``, nlml (L, r))."""
+    m'), nlml (L, r))."""
     L, r, _ = compressed.shape
-    state, ddt, cov, roots, nlml = [], [], [], [], []
+    state, ddt, cov, nlml = [], [], [], []
     for ell in range(L):
         for i in range(r):
             s2, ln, chi = theta[ell, i]
@@ -57,12 +63,21 @@ def estimates(t_sampled, compressed, t_est, theta, eta, covariance, dtype):
             state.append(s)
             ddt.append(d)
             cov.append(C)
-            roots.append(common.weight_root(covariance[ell, i], eta, dtype))
             nlml.append(common.gp_nlml(t_sampled, y, s2, ln, chi, dtype))
     shape = (L, r, len(t_est))
-    square = shape + (len(t_est),)
-    return (np.reshape(state, shape), np.reshape(ddt, shape), np.reshape(cov, square),
-            np.reshape(roots, square), np.reshape(nlml, (L, r)))
+    return (np.reshape(state, shape), np.reshape(ddt, shape),
+            np.reshape(cov, shape + (len(t_est),)), np.reshape(nlml, (L, r)))
+
+
+def weight_appliers(follow, eta, dtype):
+    """[ell][i] X -> the measured run's weight root of GP (ell, i) times X,
+    in ``dtype``: its dense root, or its factored one with the gain worked
+    out again."""
+    if follow.get("lowrank") is not None:
+        return [[lambda X, f=f: common.apply_lowrank(f["Q"], f["lam"], eta, X, dtype)
+                 for f in row] for row in follow["lowrank"]]
+    roots = np.asarray(follow["roots"]).astype(dtype)
+    return [[lambda X, W=W: W @ np.asarray(X, dtype) for W in row] for row in roots]
 
 
 def fit_gaps(t_sampled, compressed, bounds, theta, starts) -> np.ndarray:
@@ -100,12 +115,12 @@ def control_fit(t_sampled, compressed, bounds, starts, dtype) -> np.ndarray:
 
 def regression(state, ddt, roots, inputs_est, structure, dtype, signs_from):
     """The row problems stacked over trajectories: Dt_i = [sqrtW_(i, ell)
-    D_ell]_ell and z_i likewise."""
+    D_ell]_ell and z_i likewise; ``roots`` as ``weight_appliers``."""
     L, r, _ = state.shape
     D = [common.features(state[ell].T, None if inputs_est is None else inputs_est[ell].T,
                          structure) for ell in range(L)]
-    Dt = [np.concatenate([roots[ell, i] @ D[ell] for ell in range(L)]) for i in range(r)]
-    zt = [np.concatenate([roots[ell, i] @ ddt[ell, i] for ell in range(L)]) for i in range(r)]
+    Dt = [np.concatenate([roots[ell][i](D[ell]) for ell in range(L)]) for i in range(r)]
+    zt = [np.concatenate([roots[ell][i](ddt[ell, i]) for ell in range(L)]) for i in range(r)]
     return common.Regression(Dt, zt, dtype, signs_from)
 
 
@@ -192,12 +207,12 @@ def rom_stages(*, t_sampled, compressed, t_est, cfg, follow, streams, device, pr
     tdtype = torch.float64 if dtype == np.float64 else torch.float32
     L, r, _ = compressed.shape
     lam = follow["lam"]
-    state, ddt, cov, roots, nlml = estimates(t_sampled, compressed, t_est, follow["theta"],
-                                             cfg["gp_regularizer"], follow["covariance"], dtype)
+    eta = cfg["gp_regularizer"]
+    state, ddt, cov, nlml = estimates(t_sampled, compressed, t_est, follow["theta"], dtype)
     src = upstream or {"state_est": state, "ddt_est": ddt, "compressed": compressed}
-    reg = regression(*(x.astype(dtype) for x in (src["state_est"], src["ddt_est"],
-                                                 follow["roots"])),
-                     inputs_est, cfg["structure"], dtype, follow["factor"])
+    reg = regression(src["state_est"].astype(dtype), src["ddt_est"].astype(dtype),
+                     weight_appliers(follow, eta, dtype), inputs_est, cfg["structure"], dtype,
+                     follow["factor"])
     # How far the fitted hyperparameters lie above a minimum: the measured
     # run's, or, for the control in its place, the control's own fit's.
     b = cfg["gp_bounds"]
@@ -208,9 +223,16 @@ def rom_stages(*, t_sampled, compressed, t_est, cfg, follow, streams, device, pr
     fitted = follow["theta"] if upstream is None else control_fit(t_sampled, fit_in, b, starts,
                                                                   dtype)
     out = dict(nlml=nlml, fit_gap=fit_gaps(t_sampled, fit_in, b, fitted, starts),
-               state_est=state, ddt_est=ddt, covariance=cov,
-               roots=roots, reg=reg, post_mean=reg.mean(lam), post_cov=reg.covariance(lam),
+               state_est=state, ddt_est=ddt, covariance=cov, eta=eta,
+               reg=reg, post_mean=reg.mean(lam), post_cov=reg.covariance(lam),
                reg_grid=np.asarray(cfg["reg_grid"]))
+    # The dense root is worked out again from the measured run's C; the
+    # control in its place factors its own C where the run factors.
+    if follow.get("lowrank") is None:
+        out["roots"] = np.stack([[common.weight_root(C, eta, dtype) for C in row]
+                                 for row in follow["covariance"]])
+    elif upstream is not None:
+        out["lowrank"] = [[common.lowrank_root(C, eta, dtype) for C in row] for row in cov]
     # The screen integrates the float64 reference's draws where it is
     # given, in the screen's precision.
     state, compressed = src["state_est"], src["compressed"]

@@ -14,7 +14,8 @@ standard output is one JSON object (``correct``, ``attempted``,
 compared numbers and their limits are also the last lines of standard
 error. Exits non-zero, printing no result, without a CUDA device, with
 fewer devices than the cell asks for, where the program is missing, or
-where JAX or the JAX package was loaded.
+where JAX or the JAX package was loaded, in this process or in one of
+the check's.
 """
 
 import time
@@ -29,7 +30,6 @@ from pathlib import Path  # noqa: E402
 
 HOME = Path(__file__).resolve().parent
 ROOT = HOME.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "gp_bayesopinf_tpu")
 
 
 def _cache_dirs():
@@ -39,11 +39,6 @@ def _cache_dirs():
     for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"),
                      ("TRITON_CACHE_DIR", "triton"), ("CUDA_CACHE_PATH", "cuda")):
         os.environ[var] = str(cache / sub)
-
-
-def forbidden_modules():
-    """Loaded modules whose top-level name is JAX's or the JAX package's."""
-    return sorted({name.split(".")[0] for name in list(sys.modules)} & set(FORBIDDEN))
 
 
 def parse(argv):
@@ -69,9 +64,13 @@ def main(argv=None) -> int:
         print(f"needs {cell.chips} CUDA device(s); torch sees "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
-    result, checks = measure.measure(cell, args.seed, args.seconds, bool(args.trace),
-                                     device="cuda", t_start=T_START)
-    found = forbidden_modules()
+    try:
+        result, checks = measure.measure(cell, args.seed, args.seconds, bool(args.trace),
+                                         device="cuda", t_start=T_START)
+    except measure.ForbiddenModules as exc:
+        print(exc, file=sys.stderr)
+        return 3
+    found = measure.forbidden_modules()
     if found:
         print(f"modules of JAX or the JAX package were loaded: {found}", file=sys.stderr)
         return 3

@@ -10,9 +10,11 @@ import torch
 
 from benchmark.tests import _tiny
 
+CELLS = [w["name"] for w in json.loads((_tiny.ROOT / "BENCHMARK.json").read_text())["workloads"]]
+
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", ["euler.ex1a", "heat.ex3"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_a_run_on_the_card(cell):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

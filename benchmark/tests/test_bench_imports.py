@@ -61,7 +61,7 @@ def test_a_run_loads_no_jax():
         "    c = spec.Cell(s, w['name'], %r, %r)\n"
         "    run = drive.Run(c, 'cpu')\n"
         "    drive.program_config(c.config, 1)\n"
-        "print(r.forbidden_modules())\n"
+        "print(measure.forbidden_modules())\n"
     ) % (str(HOME.parent), str(HOME.parent), str(HOME.parent), str(HOME))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=HOME.parent)
