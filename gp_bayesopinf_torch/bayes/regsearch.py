@@ -32,7 +32,8 @@ are gathered. The refinement runs on every rank, and rank 0's choice is
 broadcast.
 
 The grid and the refinement are the spans ``search.grid`` and
-``search.refine`` (``utils.timing``). Each objective call counts
+``search.refine``, and an ``operator_map`` call inside them the span
+``search.operator_map`` (``utils.timing``). Each objective call counts
 ``search_slots``, the candidates screened, padding included, and
 ``search_candidates``, the distinct real ones: the grid points of the
 chunk that are not wrap padding, or 1 in the refinement.
@@ -120,7 +121,11 @@ def _kernel_objective(
         draws = lstsq.sample(lams, xi=xi).flatten(0, 1)  # (C ndraws, rows, cols)
         # A parametric model's draws become operator rows here (SEIRD2:
         # (1, 4) parameter rows -> (5, 21) "cAH" operators).
-        ohats = draws.reshape(C * ndraws, r, -1) if operator_map is None else operator_map(draws)
+        if operator_map is None:
+            ohats = draws.reshape(C * ndraws, r, -1)
+        else:
+            with span("search.operator_map"):
+                ohats = operator_map(draws)
         st_p, _ = screen(ohats, "pred", track_error=False)  # (L, C ndraws)
         st_e, err_sq = screen(ohats, "est", snapshots_est)  # (L, C ndraws), (L, C)
         # Combined in trajectory order, as the reference does.

@@ -20,7 +20,9 @@ compares posterior means and standard deviations with
 
 Every device stage runs on the ``device`` argument, in float64 apart from
 the float32 screen. A run is the span ``experiment``, each stage a child
-span of its name (``utils.timing``).
+span of its name, the data stage's host solves ``data.truth`` (the two
+truths on the prediction grid) and ``data.samples`` (the per-variable
+solves and the noise) (``utils.timing``).
 """
 
 import dataclasses
@@ -148,12 +150,14 @@ def run_seird(
     q0_new = np.asarray(config.test_initial_conditions, dtype=np.float64)
 
     with stage("data", "generating training data"):
-        true_states = model.solve_host(q0, t_pred)
-        newic_true_states = model.solve_host(q0_new, t_pred)
-        sample_times, snapshots = sample_trajectory(
-            host_rng(config.seed, "sample", ODE_STAGES), model, config, training_span,
-            num_samples, noiselevel, synced=synced, integersonly=integersonly,
-        )
+        with span("data.truth"):
+            true_states = model.solve_host(q0, t_pred)
+            newic_true_states = model.solve_host(q0_new, t_pred)
+        with span("data.samples"):
+            sample_times, snapshots = sample_trajectory(
+                host_rng(config.seed, "sample", ODE_STAGES), model, config, training_span,
+                num_samples, noiselevel, synced=synced, integersonly=integersonly,
+            )
 
     t_est = np.linspace(training_span[0], training_span[1], num_regression_points)
     t_est_t = on_device(t_est)

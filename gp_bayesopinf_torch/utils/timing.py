@@ -32,17 +32,18 @@ Spans (parent in brackets):
 * the runners' stages (``experiment``), ``TimedBlock`` names: ``data``,
   ``pod``, ``gp_fit``, ``regression``, ``ensemble``, ``decompress``,
   ``newparam``, ``ddtdata`` (and the SEIRD and scaled runners' own);
-* ``data.truth``, ``data.samples`` (``data``, Euler and heat): the truth
-  solve at the prediction grid; the solve at the sample times with the
-  noise;
+* ``data.truth``, ``data.samples`` (``data``): the truth solves at the
+  prediction grid; the solves at the sample times with the noise;
 * ``gp.fit`` (``gp_fit``, or a root): ``fit_gaussian_processes``, with
   ``gp.screen``, ``gp.rerank``, ``gp.polish`` and ``gp.final``, the four
   phases of ``gp/fit.py``, and ``gp.estimates``, the estimates and the
   weight roots;
 * ``search.grid``, ``search.refine`` (``regression``): the
-  regularization search's grid and bounded refinement;
-* ``posterior.integrate`` (``ensemble``, ``newparam``): the posterior
-  draws' integration in ``solution_posterior``;
+  regularization search's grid and bounded refinement, and inside them
+  ``search.operator_map``, a parametric model's draws made operator rows
+  (SEIRD);
+* ``posterior.integrate`` (``ensemble``, ``newparam``, ``newic``): the
+  posterior draws' integration in ``solution_posterior``;
 * ``ops.load_library``: a kernel library's first load.
 
 Counters (on the innermost open span):

@@ -1,10 +1,11 @@
 """The span recorder of ``gp_bayesopinf_torch.utils.timing``: nesting,
 request ids, the profiler's clock, the bound on kept spans, the work
 counters of the integrators and the search, a kernel library's load, the
-span tree of small CPU runs of the Euler and heat runners, a patched
+span tree of small CPU runs of the Euler, heat and SEIRD runners, a patched
 ``TimedBlock`` as the benchmark harness patches it, and no device
 synchronization in a span."""
 
+import gc
 import time
 from unittest import mock
 
@@ -16,8 +17,8 @@ import torch
 from gp_bayesopinf_torch.bayes import auto_regularize, regsearch
 from gp_bayesopinf_torch.gp import fit_gaussian_processes
 from gp_bayesopinf_torch.ops import build
-from gp_bayesopinf_torch.pipeline import EulerConfig, GPBounds, HeatMultiConfig
-from gp_bayesopinf_torch.pipeline import pdes, pdes_multi
+from gp_bayesopinf_torch.pipeline import EulerConfig, GPBounds, HeatMultiConfig, SEIRDConfig
+from gp_bayesopinf_torch.pipeline import odes, pdes, pdes_multi
 from gp_bayesopinf_torch.rom import GalerkinROM
 from gp_bayesopinf_torch.solve import ivp, weighted_lstsq_fit
 from gp_bayesopinf_torch.utils import TimedBlock, timing
@@ -235,7 +236,16 @@ def _heat_run():
                                      device="cpu", verbose=False)
 
 
-GRID = {"euler": 9, "heat": 5}
+def _seird_run():
+    cfg = SEIRDConfig(time_domain=np.linspace(0, 200, 11),
+                      gp_bounds=GPBounds((1e-8, 1e5), (0.1, 100.0), (1e-16, 0.5), 8),
+                      reg_grid=np.logspace(-16, 5, 8))
+    return odes.run_seird((0.0, 90.0), 20, 0.10, 10, ndraws=12, config=cfg, device="cpu",
+                          verbose=False)
+
+
+RUNS = {"euler": (pdes, _euler_run), "heat": (pdes_multi, _heat_run), "seird": (odes, _seird_run)}
+GRID = {"euler": 9, "heat": 5, "seird": 8}
 TREE = {
     "euler": {"data": ["data.truth", "data.samples"], "pod": [], "gp_fit": ["gp.fit"],
               "regression": ["search.grid", "search.refine"],
@@ -243,15 +253,18 @@ TREE = {
     "heat": {"data": ["data.truth", "data.samples"], "pod": [], "gp_fit": ["gp.fit"],
              "regression": ["search.grid", "search.refine"],
              "ensemble": ["posterior.integrate"], "newparam": ["posterior.integrate"]},
+    "seird": {"data": ["data.truth", "data.samples"], "gp_fit": ["gp.fit"],
+              "regression": ["search.grid", "search.refine"],
+              "ensemble": ["posterior.integrate"], "newic": ["posterior.integrate"]},
 }
 
 
-@pytest.fixture(scope="module", params=["euler", "heat"])
+@pytest.fixture(scope="module", params=list(RUNS))
 def traced_run(request):
     """A small run with the runner module's ``TimedBlock`` patched as the
     benchmark's instruments patch it: a subclass that stamps each stage
     and reads ``self._range.name``."""
-    module, run = (pdes, _euler_run) if request.param == "euler" else (pdes_multi, _heat_run)
+    module, run = RUNS[request.param]
     seen = []
     base = module.TimedBlock
 
@@ -267,8 +280,14 @@ def traced_run(request):
             return out
 
     torch.set_num_threads(1)
-    with mock.patch.object(module, "TimedBlock", Recorded):
-        res = run()
+    # A garbage collection between a span's close and the subclass's stamp
+    # (~2 ms at generation 1 in a test process) would read as skew.
+    gc.disable()
+    try:
+        with mock.patch.object(module, "TimedBlock", Recorded):
+            res = run()
+    finally:
+        gc.enable()
     req = _root_request("experiment")
     return request.param, res, _mine(req), seen
 
@@ -284,18 +303,45 @@ def test_a_run_gives_the_span_tree(traced_run):
     (fit,) = _children(spans, stages["gp_fit"])
     assert [s.name for s in sorted(_children(spans, fit), key=lambda s: s.start_ns)] == [
         "gp.screen", "gp.rerank", "gp.polish", "gp.final", "gp.estimates"]
-    steps = res.rom.substeps * (len(res.time_domain) - 1)
-    key = "rk4_steps" if which == "euler" else "dirk2_steps"
-    for stage in ("ensemble",) + (("newparam",) if which == "heat" else ()):
+    substeps = (res.model if which == "seird" else res.rom).substeps
+    steps = substeps * (len(res.time_domain) - 1)
+    key = "dirk2_steps" if which == "heat" else "rk4_steps"
+    second = {"euler": (), "heat": ("newparam",), "seird": ("newic",)}[which]
+    for stage in ("ensemble",) + second:
         (integrate,) = _children(spans, stages[stage])
         assert integrate.counters[key] == steps
     grid = next(s for s in _children(spans, stages["regression"]) if s.name == "search.grid")
     assert grid.counters["search_candidates"] == GRID[which]
     if which == "euler":
         assert _subtree_counter(spans, stages["data"], "rk4_steps") > 0
-    else:  # the host truth solves add no device steps to a stage
+    elif which == "heat":  # the host truth solves add no device steps to a stage
         assert _subtree_counter(spans, stages["data"], "dirk2_steps") == 0
         assert stages["newparam"].counters == {}
+    else:  # SEIRD's host solves count their steps: two truths, five sample solves
+        truth, samples = (next(s for s in _children(spans, stages["data"]) if s.name == n)
+                          for n in ("data.truth", "data.samples"))
+        assert truth.counters["rk4_steps"] == 2 * steps
+        assert samples.counters["rk4_steps"] == 5 * substeps * (res.sample_times.shape[1] - 1)
+
+
+def test_only_a_parametric_search_maps_operators_in_a_span(traced_run):
+    """SEIRD's search opens ``search.operator_map`` once an objective call,
+    inside the grid's and the refinement's spans; its two ensembles count
+    2 (k - 1) 8 RK4 steps. The ROM searches open none."""
+    which, res, spans, _ = traced_run
+    maps = [s for s in spans.values() if s.name == "search.operator_map"]
+    if which != "seird":
+        assert maps == []
+        return
+    (root,) = [s for s in spans.values() if s.parent is None]
+    stages = {s.name: s for s in _children(spans, root)}
+    phases = {s.name: s for s in _children(spans, stages["regression"])}
+    by_parent = {name: sum(s.parent == p.id for s in maps) for name, p in phases.items()}
+    assert by_parent == {"search.grid": 1,
+                         "search.refine": phases["search.refine"].counters["search_candidates"]}
+    assert all(s.counters == {} for s in maps)
+    steps = sum(_subtree_counter(spans, stages[n], "rk4_steps") for n in ("ensemble", "newic"))
+    assert steps == 2 * (len(res.time_domain) - 1) * 8
 
 
 def test_stage_seconds_equal_their_stage_spans(traced_run):
