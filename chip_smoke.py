@@ -59,6 +59,16 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    ``SCALED_LOCAL``'s 2,400 snapshots and at nx 3000, past the register
    kernel's 2048 cells (the wide kernel, 240 snapshots); equal to the
    bit, the kernel timed with CUDA events, the loop once;
+4e. the fused SDIRK2 integration of "cAHBN" ROM draws
+   (``cahbn_dirk2_kernel`` of ``csrc/cahbn_screen.cu``) against the
+   ``dirk2_solve`` loop through ``GalerkinROM.predict`` at heat ex3's two
+   ensemble shapes (5 x 600 draws with their trajectories' inputs, and 600
+   draws at the test parameters; r 5, nu 2, k 500, 4 substeps, operators
+   as ``cahbn_case`` builds them, its two blocks of growing draws linear):
+   timed in turns with the loop (loop, kernel, kernel, loop) with CUDA
+   events, us a Newton step, the largest gap of a stable draw over its
+   largest state, identical masks, and ptxas's registers and spill of the
+   r 5, nu 2 instance;
 5. run the full ex1a workload through the port's CLI entry
    (``euler 0.06 200 0.03 400 6 --ndraws 600`` on ``cuda``) and check
    that the grid search went through kernel A, two launches per objective
@@ -68,8 +78,9 @@ Phases, each failing loudly (an uncaught exception exits non-zero):
    ensemble is sound;
 6. run the full heat ex3 workload (``heat 1.0 20 0.05 80 5 --ndraws
    600``) and check that its search went through kernel B, two launches
-   per objective evaluation for all five trajectories, and that every
-   trajectory's ensemble is sound;
+   per objective evaluation for all five trajectories, that its two
+   ensembles took the fused SDIRK2 kernel, one launch each, and that
+   every trajectory's ensemble is sound;
 7. run the full SEIRD ex1a workload (``seird 90 90 0.10 360 --ndraws
    600``) and check that its search went through kernel A at r = 5, two
    launches per objective evaluation, that both ensembles are sound and
@@ -155,6 +166,7 @@ and a JSON status line.
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -162,6 +174,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -974,6 +987,90 @@ def euler_truth_phase():
     return out
 
 
+def dirk2_registers():
+    """ptxas's report of the fused SDIRK2 kernel's r 5, nu 2 instance:
+    (registers, spill stores, spill loads) from this process's build of
+    ``cahbn_screen``; Nones where it loaded a library built before."""
+    from gp_bayesopinf_torch.ops.build import build
+
+    lines = build("cahbn_screen").log.splitlines()
+    at = [i for i, line in enumerate(lines)
+          if "Compiling entry function" in line and "cahbn_dirk2_kernelILi5ELi2E" in line]
+    if not at:
+        return None, None, None
+    info = " ".join(lines[at[0] + 1 : at[0] + 4])
+    regs = int(re.search(r"Used (\d+) registers", info).group(1))
+    stores, loads = (int(v) for v in re.search(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", info).groups())
+    return regs, stores, loads
+
+
+def dirk2_phase():
+    """Phase 4e: the fused SDIRK2 kernel against the ``dirk2_solve`` loop
+    at heat ex3's two ensemble shapes; returns each shape's times."""
+    from gp_bayesopinf_torch.ops import cahbn_dirk2 as cd
+    from gp_bayesopinf_torch.pipeline.configs import HeatMultiConfig
+    from gp_bayesopinf_torch.pipeline.pdes_multi import input_func_factory, stacked_input_func
+    from gp_bayesopinf_torch.rom import model as rom_model
+    from gp_bayesopinf_torch.rom.model import GalerkinROM
+    from gp_bayesopinf_torch.solve.ivp import finite_mask, stability_mask
+
+    cfg = HeatMultiConfig()
+    rng = np.random.default_rng(20261019)
+    r, nu, nd = 5, 2, 600
+    t = torch.as_tensor(cfg.time_domain, device="cuda")
+    rom = GalerkinROM("cAHBN", r, nu, ivp_method="dirk2", substeps=cfg.rom_substeps)
+    newton = (len(t) - 1) * cfg.rom_substeps * 2 * 6
+    regs, stores, loads = dirk2_registers()
+    print(f"[dirk2] cahbn_dirk2_kernel<5, 2>: {regs} registers, {stores} B spill stores, "
+          f"{loads} B spill loads", flush=True)
+    out = {}
+    for name, L in (("ensemble, 5 x 600 draws", 5), ("newparam, 600 draws", 0)):
+        # cahbn_case's operators, a set for each trajectory (30 candidates of 20
+        # draws): the last candidate driven to the clamp, the one before past
+        # the envelope, a NaN draw. The two grow linearly: a draw that the
+        # quadratic term blows up leaves Newton unconverged, where any two
+        # roundings part, so its finite mask is not reproducible.
+        a = cahbn_case(30 * max(L, 1), 20, 2, 1.0, rng, False)
+        a["Ohat"][-40:, :, 1 + r :] = 0.0
+        O = a["Ohat"].reshape(max(L, 1), nd, r, -1)
+        q0 = 0.5 * torch.randn(max(L, 1), 1, r, dtype=torch.float64, device="cuda")
+        u = stacked_input_func(cfg.input_parameters, "cuda") if L else \
+            input_func_factory(cfg.test_parameters)
+        if not L:
+            O, q0 = O[0], q0[0, 0]
+        before = cd.launches
+        fused = rom.predict(O, q0, t, u)
+        torch.cuda.synchronize()
+        assert cd.launches == before + 1, "the ensemble did not take the fused kernel"
+
+        def loop():
+            with mock.patch.object(rom_model, "fused_dirk2", lambda *a: False):
+                return rom.predict(O, q0, t, u)
+
+        looped = loop()
+        shift = torch.zeros(r, dtype=torch.float64, device="cuda")
+        limits = torch.full_like(shift, 10.0)
+        keep = stability_mask(fused, shift, limits)
+        assert torch.equal(torch.isnan(fused), torch.isnan(looped)), name
+        assert torch.equal(finite_mask(fused), finite_mask(looped)), name
+        assert torch.equal(keep, stability_mask(looped, shift, limits)), name
+        gap = float(((fused - looped).abs().amax((-2, -1))
+                     / looped.abs().amax((-2, -1)))[keep].max())
+        assert gap <= 1e-12, f"{name}: the kernel is {gap:.3e} from the loop"
+        ms_loop0 = cuda_ms(loop, 1, warm=False)
+        ms = [cuda_ms(lambda: rom.predict(O, q0, t, u), 3) for _ in range(2)]
+        ms_loop = [ms_loop0, cuda_ms(loop, 1, warm=False)]
+        print(f"[dirk2] {name}, k 500, 4 substeps: fused {ms[0]:.3f} / {ms[1]:.3f} ms "
+              f"({1e3 * min(ms) / newton:.3f} us a Newton step of a draw), loop "
+              f"{ms_loop[0]:.1f} / {ms_loop[1]:.1f} ms ({min(ms_loop) / min(ms):.0f}x); "
+              f"{int(keep.sum())}/{keep.numel()} stable, largest gap {gap:.3e}; masks "
+              "identical", flush=True)
+        out[name] = {"ms": ms, "loop_ms": ms_loop, "gap": gap, "newton_steps": newton,
+                     "draws": keep.numel()}
+    return out, {"registers": regs, "spill_stores": stores, "spill_loads": loads}
+
+
 def ex1a_search_inputs(res):
     """The regularization search of an ex1a run as NumPy arrays: the
     weighted factorization rebuilt from its GPs (r 6, m' 400, d 28), the
@@ -1005,7 +1102,11 @@ def heat_phase():
     """Phase 6; returns the kernel B launches of the run."""
     from gp_bayesopinf_torch.pipeline import ensemble_errors
 
+    from gp_bayesopinf_torch.ops import cahbn_dirk2
+
+    before = cahbn_dirk2.launches
     res, wall, launches, evals = run_counted(EX3, "cahbn_ensemble_screen")
+    fused = cahbn_dirk2.launches - before
 
     n_valid = res.valid.sum(dim=1).tolist()
     errs, err_new = ensemble_errors(res)
@@ -1014,7 +1115,8 @@ def heat_phase():
           + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()), flush=True)
     print(f"[ex3] lambda {res.regularizer:.6e}, valid {n_valid} of 600 per trajectory, "
           f"{int(res.newparam_valid.sum())}/600 at the test parameters; kernel B "
-          f"launches {launches} in {evals} objective evaluations", flush=True)
+          f"launches {launches} in {evals} objective evaluations; fused SDIRK2 launches "
+          f"{fused}", flush=True)
     print(f"[ex3] ensemble-mean errors vs compressed truth {[round(e, 4) for e in errs]}, "
           f"test {err_new:.4f}; vs full-state truth {[round(e, 4) for e in full]}, "
           f"test {full_new:.4f}", flush=True)
@@ -1022,6 +1124,7 @@ def heat_phase():
     # evaluation, at least 12 for the 81-point grid in chunks of 16.
     assert launches >= 12, f"only {launches} kernel B launches in the ex3 run"
     assert launches == 2 * evals, f"{launches} kernel B launches in {evals} evaluations"
+    assert fused == 2, f"{fused} fused SDIRK2 launches for the two ensembles"
     assert math.isfinite(res.regularizer) and res.regularizer > 0
     assert min(n_valid) >= 420, f"valid draws per trajectory {n_valid}"
     assert bool(torch.isfinite(res.draws_compressed[res.valid]).all())
@@ -1030,7 +1133,7 @@ def heat_phase():
     # screen lets lambda land, 0.04-0.10 for lambda <= 1 and 0.31 at this
     # seed's lambda of 6.9 (PERF.md, section 6: the heat-multi entry).
     assert max(errs) < 0.5 and err_new < 0.5, f"ensemble-mean errors {errs}, {err_new}"
-    return launches
+    return launches, fused
 
 
 def seird_phase():
@@ -1853,9 +1956,10 @@ def main() -> int:
     wide_b = phase("kernel B, capacity", capacity_b_phase)
     wide = phase("kernels A and B, wide and runtime", wide_phase_4c)
     truth = phase("euler truth", euler_truth_phase)
+    dirk2, dirk2_ptxas = phase("fused SDIRK2", dirk2_phase)
     fields["quadratic_ensemble_screen"]["launches"], ex1a_search, ex1a_res, truth_launches = \
         phase("ex1a", pipeline_phase)
-    fields["cahbn_ensemble_screen"]["launches"] = phase("ex3", heat_phase)
+    fields["cahbn_ensemble_screen"]["launches"], dirk2_launches = phase("ex3", heat_phase)
     # Kernel A carries several main paths: its launches are those of all runs.
     seird_launches, seird_res = phase("seird", seird_phase)
     by_path = {"ex1a": fields["quadratic_ensemble_screen"]["launches"], "seird": seird_launches,
@@ -1939,6 +2043,15 @@ def main() -> int:
                                    "none: only scaled --source euler runs this width"),
                  "shape": name, "ms": f["ms"], "loop_ms": f["loop_ms"], "steps": f["steps"]}
                 for name, f in truth.items()]
+    # The fused SDIRK2 integration replaces no TPU kernel either (the JAX
+    # package's ensemble is dirk2_solve's lax.scan); phase 6 counts the ex3
+    # run's launches, one an ensemble.
+    kernels += [{"name": "cahbn_dirk2", "route": "cuda",
+                 "source": "gp_bayesopinf_torch/csrc/cahbn_screen.cu", "replaces": None,
+                 "launches": dirk2_launches, "launches_path": "ex3: its two ensembles together",
+                 "shape": name, "ms": f["ms"], "loop_ms": f["loop_ms"], "gap": f["gap"],
+                 **dirk2_ptxas}
+                for name, f in dirk2.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1316,3 +1316,328 @@ extern "C" int gpboi_cahbn_screen(const float* Ohat, const float* q0, const floa
   mean_error_kernel<<<dim3(N / nd, L), 32, 0, s>>>(partial, snaps, r, N / nd, W, k, nd, err_sq);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// The fused SDIRK2 integration of "cAHBN" ROM posterior draws, in float64
+// (ops/cahbn_dirk2.py; rom/model.py::GalerkinROM.predict takes it on the
+// card in place of solve/ivp.py::dirk2_solve's loop of small launches).
+//
+// What it computes: for B = P * D draws, each with its own (r, d) operator
+// and initial state, draw b reading the inputs of problem b / D, exactly
+// dirk2_solve's scheme: per substep of step h = hs[s - 1],
+//   k1 = stage(j + 1, q, rhs(j, q)), k2 = stage(j + 2, q + h (1 - gamma) k1, k1),
+//   q = clamp(q + h ((1 - gamma) k1 + gamma k2), +-clamp),
+// each stage `newton_iters` full Newton steps k -= (I - h gamma J(x))^-1
+// (k - rhs(x)) at x = base + h gamma k, with no early stop; the inputs come
+// from u_stages, the table of ops/cahbn_screen.py::input_stage_times, row
+// j = 3 (i substeps + s) + {0, 1, 2}. Every state at t_eval is written,
+// column 0 the initial state; no flag or error (the stability masks stay in
+// PyTorch). Each elementwise step rounds as dirk2_solve's tensor operations
+// do (__dmul_rn, __dadd_rn: no contraction across them); the right-hand side
+// forms each quadratic and bilinear feature as rom_rhs does and sums the row
+// by multiply-adds in column order; the Jacobian row is A + the quadratic
+// terms + the input terms, as rom_rhs_jacobian adds its blocks; the Newton
+// system is solved in solve/ivp.py::solve_small's order, without pivoting
+// (the matrices are near the identity), where dirk2_solve takes
+// torch.linalg.solve_ex's pivoted LU: the two agree to float64 roundoff, not
+// to the bit. Divisions and reciprocals are IEEE (no fast math).
+//
+// What bounds it: the dependent chain, as in kernel B. Heat ex3's ensemble
+// (5 x 600 draws, r 5, nu 2, k 500, 4 substeps) is 1,996 substeps of 12
+// Newton steps, ~70 GFLOP of float64 in all: ~2 ms of the card's float64
+// rate, against a chain of 23,952 Newton steps. The design is kernel B's
+// templated layout in float64: a draw takes a group of 8 lanes at r 5 (the
+// power of two >= r), lane i owning row i's d coefficients in registers
+// (33 doubles at r 5, nu 2), loaded once before the time loop (one thread a
+// draw would need 5 x 33 doubles of coefficients alone); the state vectors
+// are replicated in the group; the Newton matrix's rows are all-gathered by
+// shuffles and every lane runs the elimination. A draw whose state turns
+// NaN writes it, stays NaN and integrates zeros from then on (no slow paths
+// of NaN operands); the shuffles never leave a draw's group, so the other
+// draws keep their bits. All P problems go in one launch (blockIdx.y).
+
+namespace {
+
+constexpr double kOneMinusGammaD = 1.0 - kGammaD;
+
+template <int R>
+__device__ __forceinline__ void all_gather_d(double v, double (&out)[R]) {
+#pragma unroll
+  for (int j = 0; j < R; ++j) out[j] = __shfl_sync(kFullMask, v, j, Rows<R>::kLanes);
+}
+
+template <int R>
+__device__ __forceinline__ double own_d(const double (&x)[R], int row) {
+  double v = x[0];
+#pragma unroll
+  for (int j = 1; j < R; ++j) v = row == j ? x[j] : v;
+  return v;
+}
+
+// a / b, rounded as the IEEE division is. A zero numerator over a finite
+// nonzero b, which every back substitution meets once Newton has converged
+// to the bit (and a NaN draw's zeroed system always), returns the signed
+// zero directly instead of taking the division's slow path.
+__device__ __forceinline__ double ddiv_rn(double a, double b) {
+  const bool zero = a == 0.0 && b != 0.0 && isfinite(b);
+  double num = zero ? 1.0 : a;
+#ifdef __CUDA_ARCH__
+  asm("" : "+d"(num));
+#endif
+  const double q = num / b;
+  return zero ? __longlong_as_double((__double_as_longlong(a) ^ __double_as_longlong(b)) &
+                                     static_cast<long long>(0x8000000000000000ULL))
+              : q;
+}
+
+// This lane's row of rom_rhs: the features [1, q, q_a q_b (b <= a), u,
+// u_e q_a] each rounded, then the dot product in column order.
+template <int R, int NU>
+__device__ __forceinline__ double dirk2_rhs_row(const double (&c)[Layout<R, NU>::kD],
+                                                const double (&q)[R], const double (&u)[NU]) {
+  using L = Layout<R, NU>;
+  double acc = c[0];
+#pragma unroll
+  for (int a = 0; a < R; ++a) acc = fma(c[1 + a], q[a], acc);
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+#pragma unroll
+    for (int b = 0; b <= a; ++b) acc = fma(c[L::kH + a * (a + 1) / 2 + b], __dmul_rn(q[a], q[b]), acc);
+  }
+#pragma unroll
+  for (int e = 0; e < NU; ++e) acc = fma(c[L::kB + e], u[e], acc);
+#pragma unroll
+  for (int e = 0; e < NU; ++e) {
+#pragma unroll
+    for (int a = 0; a < R; ++a) acc = fma(c[L::kN + e * R + a], __dmul_rn(u[e], q[a]), acc);
+  }
+  return acc;
+}
+
+// Row `row` of I - hg J(x, u): J[row, j] = (A[row, j] + sum_z H[row, z]
+// d ckron(x)_z / dx_j) + sum_e N[row, e r + j] u_e, the derivative of x_a x_b
+// being x_b at j = a, x_a at j = b and x_j + x_j at a = b = j.
+template <int R, int NU>
+__device__ __forceinline__ void dirk2_newton_row(const double (&c)[Layout<R, NU>::kD],
+                                                 const double (&x)[R], const double (&u)[NU],
+                                                 double hg, int row, double (&m)[R]) {
+  using L = Layout<R, NU>;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    double quad = 0.0;
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+#pragma unroll
+      for (int b = 0; b <= a; ++b) {
+        const double h = c[L::kH + a * (a + 1) / 2 + b];
+        if (a == j && b == j) quad = fma(h, __dadd_rn(x[j], x[j]), quad);
+        else if (a == j) quad = fma(h, x[b], quad);
+        else if (b == j) quad = fma(h, x[a], quad);
+      }
+    }
+    double lin = 0.0;
+#pragma unroll
+    for (int e = 0; e < NU; ++e) lin = fma(c[L::kN + e * R + j], u[e], lin);
+    const double col = __dadd_rn(__dadd_rn(c[1 + j], quad), lin);
+    m[j] = __dsub_rn(row == j ? 1.0 : 0.0, __dmul_rn(hg, col));
+  }
+}
+
+// Solve M dk = F without pivoting in solve_small's order: the lane of row i
+// holds M[i, :] and F[i]; the rows are all-gathered and every lane of the
+// group runs the elimination and the back substitution.
+template <int R>
+__device__ __forceinline__ void dirk2_eliminate(const double (&m_row)[R], double f_row,
+                                                double (&dk)[R]) {
+  double M[R][R], F[R], col[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    all_gather_d<R>(m_row[j], col);
+#pragma unroll
+    for (int i = 0; i < R; ++i) M[i][j] = col[i];
+  }
+  all_gather_d<R>(f_row, F);
+#pragma unroll
+  for (int p = 0; p < R; ++p) {
+    const double inv = 1.0 / M[p][p];
+#pragma unroll
+    for (int i = p + 1; i < R; ++i) {
+      const double f = __dmul_rn(M[i][p], inv);
+#pragma unroll
+      for (int j = p + 1; j < R; ++j) M[i][j] = __dsub_rn(M[i][j], __dmul_rn(f, M[p][j]));
+      F[i] = __dsub_rn(F[i], __dmul_rn(f, F[p]));
+    }
+  }
+#pragma unroll
+  for (int i = R - 1; i >= 0; --i) {
+    double acc = F[i];
+#pragma unroll
+    for (int j = i + 1; j < R; ++j) acc = __dsub_rn(acc, __dmul_rn(M[i][j], dk[j]));
+    dk[i] = ddiv_rn(acc, M[i][i]);
+  }
+}
+
+// One stage: `newton_iters` Newton steps on kk = rhs(q_base + hg kk, u) from
+// the guess in kk (replicated in the group).
+template <int R, int NU>
+__device__ __forceinline__ void dirk2_stage(const double (&c)[Layout<R, NU>::kD], int row,
+                                            const double (&u)[NU], const double (&q_base)[R],
+                                            double hg, int newton_iters, double (&kk)[R]) {
+#pragma unroll 1
+  for (int it = 0; it < newton_iters; ++it) {
+    double x[R], dk[R], m[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) x[i] = __dadd_rn(q_base[i], __dmul_rn(hg, kk[i]));
+    const double F = __dsub_rn(own_d<R>(kk, row), dirk2_rhs_row<R, NU>(c, x, u));
+    dirk2_newton_row<R, NU>(c, x, u, hg, row, m);
+    dirk2_eliminate<R>(m, F, dk);
+#pragma unroll
+    for (int i = 0; i < R; ++i) kk[i] = __dsub_rn(kk[i], dk[i]);
+  }
+}
+
+// Clamp to +-clamp that keeps NaN, as torch.clamp does.
+__device__ __forceinline__ double clamp_keep_nan(double x, double clamp) {
+  return x < -clamp ? -clamp : (x > clamp ? clamp : x);
+}
+
+template <int NU>
+__device__ __forceinline__ void dirk2_inputs(const double* __restrict__ u_p, int row,
+                                             double (&u)[NU]) {
+#pragma unroll
+  for (int e = 0; e < NU; ++e) u[e] = __ldg(u_p + static_cast<size_t>(row) * NU + e);
+}
+
+template <int R, int NU>
+__global__ void __launch_bounds__(32)
+cahbn_dirk2_kernel(const double* __restrict__ Ohat,      // (P D, R, kD)
+                   const double* __restrict__ q0,        // (P D, R)
+                   const double* __restrict__ hs,        // (k - 1,)
+                   const double* __restrict__ u_stages,  // (P, (k-1) substeps 3, NU)
+                   int D, int k, int substeps, int newton_iters, double clamp,
+                   double* __restrict__ out) {           // (P D, R, k)
+  constexpr int kD = Layout<R, NU>::kD;
+  constexpr int kLanes = Rows<R>::kLanes;
+  const int row = threadIdx.x % kLanes;
+  const int draw = blockIdx.x * Rows<R>::kDrawsPerWarp + threadIdx.x / kLanes;
+  // A group past the problem's D draws shadows its draw 0 and writes nothing.
+  const size_t n = static_cast<size_t>(blockIdx.y) * D + (draw < D ? draw : 0);
+  const bool writes = draw < D && row < R;
+
+  double c[kD];
+  const double* op = Ohat + (n * R + (row < R ? row : 0)) * kD;
+#pragma unroll
+  for (int j = 0; j < kD; ++j) c[j] = row < R ? __ldg(op + j) : 0.0;
+  const double* u_p =
+      u_stages + static_cast<size_t>(blockIdx.y) * (k - 1) * substeps * 3 * NU;
+  double* o = out + (n * R + (row < R ? row : 0)) * k;
+  double q[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) q[i] = q0[n * R + i];
+
+  // Once a state holds a NaN, every later state is NaN in every entry (each
+  // row of the right-hand side reads every state); from then on the draw
+  // writes NaN and integrates q = 0 with a zero operator.
+  bool dead = false;
+  auto report = [&](int s) {
+    if (writes) o[s] = dead ? __longlong_as_double(0x7ff8000000000000LL) : own_d<R>(q, row);
+    bool nan_now = false;
+#pragma unroll
+    for (int i = 0; i < R; ++i) nan_now = nan_now || isnan(q[i]);
+    if (nan_now) {
+      dead = true;
+#pragma unroll
+      for (int j = 0; j < kD; ++j) c[j] = 0.0;
+#pragma unroll
+      for (int i = 0; i < R; ++i) q[i] = 0.0;
+    }
+  };
+  report(0);
+
+  double u[NU], k1[R], k2[R], base2[R];
+  for (int s = 1; s < k; ++s) {
+    const double h = hs[s - 1];
+    const double hg = __dmul_rn(h, kGammaD);
+    const double h1 = __dmul_rn(h, kOneMinusGammaD);
+    for (int sub = 0; sub < substeps; ++sub) {
+      const int urow = ((s - 1) * substeps + sub) * 3;
+      dirk2_inputs<NU>(u_p, urow, u);
+      all_gather_d<R>(dirk2_rhs_row<R, NU>(c, q, u), k1);
+      dirk2_inputs<NU>(u_p, urow + 1, u);
+      dirk2_stage<R, NU>(c, row, u, q, hg, newton_iters, k1);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        base2[i] = __dadd_rn(q[i], __dmul_rn(h1, k1[i]));
+        k2[i] = k1[i];
+      }
+      dirk2_inputs<NU>(u_p, urow + 2, u);
+      dirk2_stage<R, NU>(c, row, u, base2, hg, newton_iters, k2);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const double step = __dadd_rn(__dmul_rn(kOneMinusGammaD, k1[i]), __dmul_rn(kGammaD, k2[i]));
+        q[i] = clamp_keep_nan(__dadd_rn(q[i], __dmul_rn(h, step)), clamp);
+      }
+    }
+    report(s);
+  }
+}
+
+template <int R, int NU>
+cudaError_t launch_dirk2(const double* Ohat, const double* q0, const double* hs,
+                         const double* u_stages, int P, int D, int k, int substeps,
+                         int newton_iters, double clamp, double* out, cudaStream_t stream) {
+  const dim3 grid((D + Rows<R>::kDrawsPerWarp - 1) / Rows<R>::kDrawsPerWarp, P);
+  cahbn_dirk2_kernel<R, NU><<<grid, 32, 0, stream>>>(Ohat, q0, hs, u_stages, D, k, substeps,
+                                                     newton_iters, clamp, out);
+  return cudaGetLastError();
+}
+
+template <int NU>
+int launch_dirk2_r(int r, const double* Ohat, const double* q0, const double* hs,
+                   const double* u_stages, int P, int D, int k, int substeps, int newton_iters,
+                   double clamp, double* out, cudaStream_t stream) {
+  switch (r) {
+#define GPBOI_DIRK2_CASE(R)                                                                \
+  case R:                                                                                  \
+    return static_cast<int>(launch_dirk2<R, NU>(Ohat, q0, hs, u_stages, P, D, k, substeps, \
+                                                newton_iters, clamp, out, stream));
+    GPBOI_DIRK2_CASE(1)
+    GPBOI_DIRK2_CASE(2)
+    GPBOI_DIRK2_CASE(3)
+    GPBOI_DIRK2_CASE(4)
+    GPBOI_DIRK2_CASE(5)
+    GPBOI_DIRK2_CASE(6)
+    GPBOI_DIRK2_CASE(7)
+    GPBOI_DIRK2_CASE(8)
+#undef GPBOI_DIRK2_CASE
+    default:
+      return -2;
+  }
+}
+
+constexpr int kDirk2MaxR = 8;
+constexpr int kDirk2MaxNu = 2;
+
+}  // namespace
+
+// Integrates P D "cAHBN" ROM draws by SDIRK2 in one launch, in float64:
+// Ohat (P D, r, d), q0 (P D, r), hs (k - 1,) the step of each output
+// interval over `substeps` (as dirk2_solve computes it), u_stages (P,
+// (k - 1) substeps 3, nu), draw b reading problem b / D; writes out (P D, r,
+// k). Returns 0 on success, a cudaError_t code if the launch failed, -1 for
+// r < 1 or nu < 1, -2 for r > 8 or nu > 2 (no instance) and
+// cudaErrorInvalidValue for sizes it does not take.
+extern "C" int gpboi_cahbn_dirk2(const double* Ohat, const double* q0, const double* hs,
+                                 const double* u_stages, int P, int D, int r, int nu, int k,
+                                 int substeps, int newton_iters, double clamp, double* out,
+                                 void* stream) {
+  if (r < 1 || nu < 1) return -1;
+  if (r > kDirk2MaxR || nu > kDirk2MaxNu) return -2;
+  if (P < 1 || P > 65535 || D < 1 || k < 1 || substeps < 1 || newton_iters < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return nu == 1 ? launch_dirk2_r<1>(r, Ohat, q0, hs, u_stages, P, D, k, substeps, newton_iters,
+                                     clamp, out, s)
+                 : launch_dirk2_r<2>(r, Ohat, q0, hs, u_stages, P, D, k, substeps, newton_iters,
+                                     clamp, out, s);
+}

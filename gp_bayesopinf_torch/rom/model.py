@@ -4,9 +4,15 @@
 The model object holds only static metadata; operator values are passed
 explicitly, so a batch of posterior draws integrates as one call with a
 leading draw axis on the operators.
+
+A dirk2 "cAHBN" ROM whose draws lie on the card integrates in one launch of
+the fused float64 kernel (``ops/cahbn_dirk2.py``), as ``fused_dirk2``
+decides from the call's tensors; every other dirk2 call, every CPU tensor
+included, takes ``solve.ivp.dirk2_solve``.
 """
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -14,8 +20,40 @@ import torch
 from .operators import (
     assemble_data_matrix, extract_operators, rom_rhs, rom_rhs_jacobian, total_dim,
 )
+from ..ops import cahbn_dirk2
 from ..ops.cahbn_screen import input_stage_times
 from ..solve.ivp import dirk2_solve, rk4_solve, rk4_stage_times
+
+
+def fused_dirk2(structure: str, Ohat, q0, u) -> bool:
+    """Whether ``GalerkinROM.predict`` integrates by SDIRK2 in the fused
+    kernel: a "cAHBN" ROM whose (..., r, d) operators, initial states and
+    (n, ..., nu) input table lie on one CUDA device, the operators and states
+    in float64, with 1 <= r <= 8 and 1 <= nu <= 2 (the kernel's instances)
+    and at least one draw. Reads only each tensor's ``device``, ``dtype``
+    and ``shape``."""
+    r, nu = Ohat.shape[-2], u.shape[-1]
+    return (structure == "cAHBN" and Ohat.device.type == "cuda" and math.prod(Ohat.shape) > 0
+            and q0.device == Ohat.device and u.device == Ohat.device
+            and Ohat.dtype == torch.float64 and q0.dtype == torch.float64
+            and 1 <= r <= cahbn_dirk2.MAX_STATE and 1 <= nu <= cahbn_dirk2.MAX_INPUT)
+
+
+def input_problems(u: torch.Tensor, batch: torch.Size):
+    """The (n, ..., nu) input table of a batch of draws as the fused kernel
+    takes it: (P, n, nu) float64, the inputs of the P = prod(batch[:a])
+    problems over which they vary (a the axis after the last of ``batch``
+    along which u is not broadcast), and D = prod(batch[a:]) draws a
+    problem, draw b of the flattened batch reading problem b // D."""
+    n, nu = u.shape[0], u.shape[-1]
+    axes = (1,) * (len(batch) - (u.ndim - 2)) + tuple(u.shape[1:-1])
+    if torch.broadcast_shapes(batch, axes) != batch:
+        raise ValueError(f"inputs of batch {axes} widen the draws' batch {tuple(batch)}")
+    a = max((i + 1 for i, s in enumerate(axes) if s != 1), default=0)
+    P = math.prod(batch[:a])
+    table = u.reshape((n,) + axes[:a] + (nu,)).expand((n,) + tuple(batch[:a]) + (nu,))
+    table = table.reshape(n, P, nu).movedim(0, 1).to(torch.float64).contiguous()
+    return table, P, math.prod(batch[a:])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +126,9 @@ class GalerkinROM:
         (one input history per trajectory). It is called once, on every
         time the integrator touches (``input_stage_times`` for dirk2,
         ``rk4_stage_times`` for rk4), for the whole batch.
+
+        dirk2 integrates in the fused kernel where ``fused_dirk2`` says so
+        (the same states to float64 roundoff), else in ``dirk2_solve``.
         """
         S = self.structure
         q0 = q0.expand(Ohat.shape[:-1])
@@ -104,6 +145,14 @@ class GalerkinROM:
         u = [None] * (3 * (t_eval.shape[0] - 1) * self.substeps)
         if input_func is not None:
             u = input_func(input_stage_times(t_eval, self.substeps)).movedim(-1, 0)
+            if fused_dirk2(S, Ohat, q0, u):
+                batch, (r, d) = Ohat.shape[:-2], Ohat.shape[-2:]
+                table, P, D = input_problems(u, batch)
+                out = cahbn_dirk2.cahbn_dirk2_cuda(
+                    Ohat.reshape(P * D, r, d).contiguous(), q0.reshape(P * D, r).contiguous(),
+                    t_eval, table, substeps=self.substeps,
+                )
+                return out.reshape(batch + out.shape[-2:])
         return dirk2_solve(
             lambda j, q: rom_rhs(Ohat, q, u[j], S),
             q0, t_eval,

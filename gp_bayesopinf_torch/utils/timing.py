@@ -52,15 +52,18 @@ Counters (on the innermost open span):
   and a fused Euler truth solve (``Euler.solve`` on the card);
 * ``rk4_fused_steps``: the same steps of a fused Euler truth solve
   (``ops/euler_truth.py``);
-* ``dirk2_steps``: (k - 1) substeps a ``dirk2_solve``;
+* ``dirk2_steps``: (k - 1) substeps a ``dirk2_solve``, and a fused SDIRK2
+  integration (``GalerkinROM.predict`` of a dirk2 "cAHBN" ROM on the card);
+* ``dirk2_fused_steps``: the same steps of a fused SDIRK2 integration
+  (``ops/cahbn_dirk2.py``);
 * ``search_slots``, ``search_candidates``: per objective call of the
   search, the candidates screened (padding included) and the distinct
   real ones among them.
 
 Each counter feeds a benchmark metric (``benchmark/counts/spans.py``):
 the steps ``truth_ops_per_step`` and ``ensemble_ops_per_step``, the
-fused steps ``truth_fused_share``, the search's two
-``search_useful_share``.
+fused steps ``truth_fused_share`` and ``ensemble_fused_share``, the
+search's two ``search_useful_share``.
 """
 
 import collections
